@@ -1,0 +1,155 @@
+"""Mamba sequence mixer with ZigMa scan-type dispatch (image scans).
+
+Counterpart of ``zigma_tpu/models/mamba.py``.  Layout is channels-last
+(batch, L, d) throughout.  Parameters carry the reference torch names
+(``in_proj``, ``out_proj``, ``conv1d``, ``x_proj``, ``dt_proj``, ``A_log``,
+``D``, and the ``_b`` set for the v2 backward direction), so a reference
+state dict loads as it is.
+
+As in the JAX package:
+- the scan-path permutation is applied at d_model before ``in_proj`` and
+  inverted after ``out_proj`` (the ops between are per token);
+- v2 runs a second direction on the flipped input and adds it back flipped;
+- the dt_proj bias enters the scan as ``delta_bias`` under softplus, not in
+  the GEMM.
+
+On CUDA the scan is the hand-written kernel with the ``(y + u*D)*silu(z)``
+gate fused in.  Video folds, parallelN and the decode ``step``/``prefill``
+are later slices of the port and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from zigma_tpu_torch.models.embedders import dense
+from zigma_tpu_torch.models.inits import (rescaled_linear_init_,
+                                          torch_linear_init_, uniform_)
+from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
+from zigma_tpu_torch.ops.selective_scan import selective_scan
+
+__all__ = ["Mamba"]
+
+_IMAGE_SCANS = ("v1", "v2", "zigzagN", "hilbertN", "randomN")
+
+
+class Mamba(nn.Module):
+    """Selective-SSM token mixer.  ``perm``/``perm_rev`` are this layer's
+    scan path and its inverse (numpy int arrays) or None."""
+
+    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4,
+                 expand: int = 2, dt_rank="auto", dt_min: float = 0.001,
+                 dt_max: float = 0.1, dt_init: str = "random",
+                 dt_scale: float = 1.0, dt_init_floor: float = 1e-4,
+                 conv_bias: bool = True, bias: bool = False,
+                 scan_type: str = "v2", perm: Optional[np.ndarray] = None,
+                 perm_rev: Optional[np.ndarray] = None, n_layer: int = 1,
+                 dtype: torch.dtype = torch.float32, scan_backend: str = "auto",
+                 conv_fp32_taps: bool = False, device=None):
+        super().__init__()
+        if not scan_type.startswith(_IMAGE_SCANS):
+            raise NotImplementedError(
+                f"scan_type {scan_type!r} lands in a later slice of the port "
+                f"(this slice: {', '.join(_IMAGE_SCANS)})")
+        if (perm is None) != (perm_rev is None):
+            raise ValueError("perm and its inverse perm_rev come together")
+        self.d_model, self.d_state, self.d_conv = d_model, d_state, d_conv
+        self.d_inner = int(expand * d_model)
+        self.dt_rank = math.ceil(d_model / 16) if dt_rank == "auto" else int(dt_rank)
+        self.dt_min, self.dt_max = dt_min, dt_max
+        self.dt_init, self.dt_scale, self.dt_init_floor = dt_init, dt_scale, dt_init_floor
+        self.scan_type, self.n_layer = scan_type, n_layer
+        self.dtype, self.scan_backend = dtype, scan_backend
+        self.conv_accum = torch.float32 if conv_fp32_taps else None
+        self.directions = ("", "_b") if scan_type == "v2" else ("",)
+
+        di, R, N = self.d_inner, self.dt_rank, d_state
+        self.in_proj = nn.Linear(d_model, 2 * di, bias=bias, device=device)
+        for s in self.directions:
+            setattr(self, f"conv1d{s}", nn.Conv1d(di, di, d_conv, groups=di,
+                                                  bias=conv_bias, device=device))
+            setattr(self, f"x_proj{s}", nn.Linear(di, R + 2 * N, bias=False,
+                                                  device=device))
+            setattr(self, f"dt_proj{s}", nn.Linear(R, di, bias=True, device=device))
+            setattr(self, f"A{s}_log", nn.Parameter(torch.empty(di, N, device=device)))
+            setattr(self, f"D{s}", nn.Parameter(torch.empty(di, device=device)))
+        self.out_proj = nn.Linear(di, d_model, bias=bias, device=device)
+        # the permutation tables are not state: persistent=False keeps them
+        # out of state_dict() (reference checkpoints have no such keys)
+        for name, p in (("perm", perm), ("perm_rev", perm_rev)):
+            self.register_buffer(
+                name, None if p is None else torch.as_tensor(
+                    np.asarray(p), dtype=torch.long, device=device),
+                persistent=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        """The JAX package's inits: torch-default GEMMs with zero biases,
+        out_proj rescaled by sqrt(n_layer), S4D-real A, inverse-softplus dt
+        bias, U(+-1/sqrt(d_conv)) conv taps, D = 1."""
+        torch_linear_init_(self.in_proj.weight, generator)
+        rescaled_linear_init_(self.out_proj.weight, self.n_layer, generator)
+        for lin in (self.in_proj, self.out_proj):
+            if lin.bias is not None:
+                lin.bias.zero_()
+        for s in self.directions:
+            conv = getattr(self, f"conv1d{s}")
+            uniform_(conv.weight, (1.0 / self.d_conv) ** 0.5, generator)
+            if conv.bias is not None:
+                uniform_(conv.bias, (1.0 / self.d_conv) ** 0.5, generator)
+            torch_linear_init_(getattr(self, f"x_proj{s}").weight, generator)
+            dt_proj = getattr(self, f"dt_proj{s}")
+            std = self.dt_rank ** -0.5 * self.dt_scale
+            if self.dt_init == "constant":
+                dt_proj.weight.fill_(std)
+            elif self.dt_init == "random":
+                uniform_(dt_proj.weight, std, generator)
+            else:
+                raise NotImplementedError(self.dt_init)
+            dt = torch.exp(
+                torch.rand(self.d_inner, generator=generator,
+                           device=dt_proj.bias.device)
+                * (math.log(self.dt_max) - math.log(self.dt_min))
+                + math.log(self.dt_min)).clamp(min=self.dt_init_floor)
+            dt_proj.bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+            A = torch.arange(1, self.d_state + 1, dtype=torch.float32,
+                             device=dt.device).repeat(self.d_inner, 1)
+            getattr(self, f"A{s}_log").copy_(torch.log(A))
+            getattr(self, f"D{s}").fill_(1.0)
+
+    def _scan_branch(self, s: str, x_in, z):
+        """conv -> x_proj -> dt_proj -> selective scan for direction ``s``
+        ('' forward, '_b' backward); returns the gated scan output."""
+        conv = getattr(self, f"conv1d{s}")
+        x_c = causal_conv1d(x_in, conv.weight[:, 0, :], conv.bias,
+                            activation="silu", accum_dtype=self.conv_accum)
+        x_dbl = F.linear(x_c, getattr(self, f"x_proj{s}").weight.to(self.dtype))
+        dt, Bv, Cv = x_dbl.split([self.dt_rank, self.d_state, self.d_state], -1)
+        dt_proj = getattr(self, f"dt_proj{s}")
+        delta = F.linear(dt, dt_proj.weight.to(self.dtype))  # bias: in the scan
+        A = -torch.exp(getattr(self, f"A{s}_log").float())
+        return selective_scan(x_c, delta, A, Bv, Cv,
+                              getattr(self, f"D{s}").float(), z=z,
+                              delta_bias=dt_proj.bias.float(),
+                              delta_softplus=True, backend=self.scan_backend)
+
+    def forward(self, x):
+        """x: (batch, L, d_model) -> (batch, L, d_model)."""
+        if self.perm is not None:
+            x = x[:, self.perm]
+        xz = dense(self.in_proj, x, self.dtype)
+        x_in, z = xz.chunk(2, dim=-1)
+        y = self._scan_branch("", x_in, z)
+        if self.scan_type == "v2":
+            y_b = self._scan_branch("_b", x_in.flip(1), z.flip(1))
+            y = y + y_b.flip(1)
+        out = dense(self.out_proj, y, self.dtype)
+        if self.perm_rev is not None:
+            out = out[:, self.perm_rev]
+        return out

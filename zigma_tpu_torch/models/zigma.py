@@ -1,0 +1,257 @@
+"""ZigMa denoiser: DiT-style adaLN blocks with Mamba zigzag-scan mixers.
+
+Counterpart of ``zigma_tpu/models/zigma.py``.  Per block:
+
+    x, residual = add_norm(x, residual, prenorm=True)
+    shift, scale, gate = adaLN(silu(c))
+    x = x + gate * Mamba(modulate(x, shift, scale))
+
+then a final add-norm, the FinalLayer linear and unpatchify.  The stack is a
+list of per-layer ``blocks.{i}`` (no counterpart of JAX's ``nn.scan`` over
+layers); parameter names are the reference torch ones, so a reference
+``.pt`` state dict loads with ``load_state_dict``.  Parameters are stored in
+float32; ``dtype`` is the compute dtype (``utils.inference`` pre-casts the
+GEMM weights for serving).
+
+This slice is the serving path.  Text cross-attention, video, use_pe=3, the
+Mamba-2 mixer, remat and drop_path (training) are later slices: asking for
+them raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from zigma_tpu_torch.models.embedders import (LabelEmbedder, PatchEmbed,
+                                              TimestepEmbedder, dense,
+                                              get_2d_sincos_pos_embed)
+from zigma_tpu_torch.models.inits import torch_linear_init_
+from zigma_tpu_torch.models.mamba import Mamba
+from zigma_tpu_torch.ops.norms import add_norm, layer_norm
+from zigma_tpu_torch.ops.paths import build_layer_paths
+
+__all__ = ["ZigMa", "ZigMaBlock", "FinalLayer", "ZIGMA_PRESETS", "zigma_flops",
+           "modulate"]
+
+
+def modulate(x, shift, scale):
+    return x * (1 + scale[:, None]) + shift[:, None]
+
+
+class _Norm(nn.Module):
+    """Parameter holder of a block norm (``weight``, and ``bias`` for
+    LayerNorm); the math is ``ops.norms.add_norm``."""
+
+    def __init__(self, dim: int, bias: bool, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        nn.init.ones_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class ZigMaBlock(nn.Module):
+    """adaLN Mamba block with the prenorm-residual contract."""
+
+    def __init__(self, dim: int, mixer_cfg: dict, rms_norm: bool = True,
+                 norm_epsilon: float = 1e-5, residual_in_fp32: bool = True,
+                 n_layer: int = 1, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kind = "rms" if rms_norm else "layer"
+        self.eps, self.residual_in_fp32 = norm_epsilon, residual_in_fp32
+        self.norm = _Norm(dim, bias=not rms_norm, device=device)
+        self.adaLN_modulation = nn.Sequential(
+            nn.SiLU(), nn.Linear(dim, 3 * dim, device=device))
+        self.mixer = Mamba(dim, n_layer=n_layer, dtype=dtype, device=device,
+                           **mixer_cfg)
+
+    def reset_parameters(self, generator=None):
+        self.norm.reset_parameters()
+        nn.init.zeros_(self.adaLN_modulation[1].weight)  # DiT zero-init
+        nn.init.zeros_(self.adaLN_modulation[1].bias)
+        self.mixer.reset_parameters(generator)
+
+    def forward(self, x, residual, c):
+        x, residual = add_norm(x, self.norm.weight, self.norm.bias, residual,
+                               kind=self.kind, eps=self.eps, prenorm=True,
+                               residual_in_fp32=self.residual_in_fp32)
+        mod = dense(self.adaLN_modulation[1], F.silu(c), self.dtype)
+        shift, scale, gate = mod.chunk(3, dim=-1)
+        x = x + gate[:, None] * self.mixer(modulate(x, shift, scale))
+        return x, residual
+
+
+class FinalLayer(nn.Module):
+    """LayerNorm without affine (eps 1e-6) + linear to patch pixels."""
+
+    def __init__(self, hidden: int, patch_size: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.linear = nn.Linear(hidden, patch_size * patch_size * out_channels,
+                                device=device)
+
+    def reset_parameters(self, generator=None):
+        torch_linear_init_(self.linear.weight, generator)
+        nn.init.zeros_(self.linear.bias)
+
+    def forward(self, x):
+        return dense(self.linear, layer_norm(x, eps=1e-6), self.dtype)
+
+
+class ZigMa(nn.Module):
+    """The denoiser: ``model(x, t, y=None)`` with x (B, C, H, W) latents,
+    t (B,) in [0, 1], y optional class labels (B,)."""
+
+    def __init__(self, in_channels: int, embed_dim: int, depth: int,
+                 img_dim: int, patch_size: int = 1, num_classes: int = -1,
+                 class_dropout_prob: float = 0.0, norm_epsilon: float = 1e-5,
+                 rms_norm: bool = True, residual_in_fp32: bool = True,
+                 drop_path_rate: float = 0.1, scan_type: str = "v2",
+                 use_pe: int = 0, use_checkpoint: bool = False,
+                 remat_policy: Optional[str] = None,
+                 ssm_cfg: Optional[dict] = None, path_seed: int = 0,
+                 scan_backend: str = "auto", has_text: bool = False,
+                 video_frames: int = 0, dtype: torch.dtype = torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None,
+                 **unsupported):
+        super().__init__()
+        ssm_cfg = dict(ssm_cfg or {})
+        later = dict(unsupported)
+        if has_text:
+            later["has_text"] = has_text
+        if video_frames:
+            later["video_frames"] = video_frames
+        if use_pe not in (0, 1, 2):
+            later["use_pe"] = use_pe
+        if int(ssm_cfg.pop("ssm_version", 1)) != 1:
+            later["ssm_cfg.ssm_version"] = 2
+        if later:
+            raise NotImplementedError(
+                f"{later}: lands in a later slice of the port (this slice "
+                f"serves image ZigMa with Mamba-1 mixers, use_pe 0-2, "
+                f"unconditional or class labels)")
+        self.in_channels, self.embed_dim, self.depth = in_channels, embed_dim, depth
+        self.img_dim, self.patch_size = img_dim, patch_size
+        self.num_classes, self.use_pe, self.dtype = num_classes, use_pe, dtype
+        self.rms_norm, self.norm_epsilon = rms_norm, norm_epsilon
+        self.residual_in_fp32 = residual_in_fp32
+        # training-time features, honoured by the training slice; a forward
+        # that needs them raises (see forward)
+        self.drop_path_rate, self.use_checkpoint = drop_path_rate, use_checkpoint
+        self.remat_policy = remat_policy
+
+        side = img_dim // patch_size
+        n_patches = side * side
+        self.x_embedder = PatchEmbed(patch_size, in_channels, embed_dim,
+                                     dtype=dtype, device=device)
+        self.t_embedder = TimestepEmbedder(embed_dim, dtype=dtype, device=device)
+        if num_classes > 0:
+            self.y_embedder = LabelEmbedder(num_classes, embed_dim,
+                                            class_dropout_prob, device=device)
+        if use_pe == 1:
+            self.register_buffer(
+                "pe_table", get_2d_sincos_pos_embed(embed_dim, side, device),
+                persistent=False)
+        elif use_pe == 2:
+            self.pos_embed = nn.Parameter(
+                torch.zeros(1, n_patches, embed_dim, device=device))
+        paths, paths_rev = build_layer_paths(scan_type, depth, side, seed=path_seed)
+        self.blocks = nn.ModuleList([
+            ZigMaBlock(embed_dim, dict(scan_type=scan_type, perm=paths[i],
+                                       perm_rev=paths_rev[i],
+                                       scan_backend=scan_backend, **ssm_cfg),
+                       rms_norm=rms_norm, norm_epsilon=norm_epsilon,
+                       residual_in_fp32=residual_in_fp32, n_layer=depth,
+                       dtype=dtype, device=device)
+            for i in range(depth)])
+        self.norm_f = _Norm(embed_dim, bias=not rms_norm, device=device)
+        self.final_layer = FinalLayer(embed_dim, patch_size, in_channels,
+                                      dtype=dtype, device=device)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """The JAX package's init (zero adaLN, zero pos_embed, ...)."""
+        with torch.no_grad():
+            for m in (self.x_embedder, self.t_embedder, *self.blocks,
+                      self.norm_f, self.final_layer):
+                m.reset_parameters(generator)
+            if self.num_classes > 0:
+                self.y_embedder.reset_parameters(generator)
+            if self.use_pe == 2:
+                self.pos_embed.zero_()
+
+    def forward(self, x, t, y=None, train: bool = False):
+        if train or (self.use_checkpoint and torch.is_grad_enabled()):
+            raise NotImplementedError(
+                "training (drop_path, remat, the backward scan kernel) lands "
+                "with the training slice; sample under torch.inference_mode()")
+        h = self.x_embedder(x)
+        c = self.t_embedder((t * 1000.0).float())
+        if self.num_classes > 0:
+            c = c + self.y_embedder(y)
+        if self.use_pe == 1:
+            h = h + self.pe_table.to(self.dtype)[None]
+        elif self.use_pe == 2:
+            h = h + self.pos_embed.to(self.dtype)
+        residual = None
+        for block in self.blocks:
+            h, residual = block(h, residual, c)
+        h = add_norm(h, self.norm_f.weight, self.norm_f.bias, residual,
+                     kind="rms" if self.rms_norm else "layer",
+                     eps=self.norm_epsilon, prenorm=False,
+                     residual_in_fp32=self.residual_in_fp32)
+        return self._unpatchify(self.final_layer(h))
+
+    def _unpatchify(self, x):
+        """(B, L, p*p*C) -> (B, C, H, W)."""
+        c, p = self.in_channels, self.patch_size
+        hw = int(x.shape[1] ** 0.5)
+        x = x.reshape(x.shape[0], hw, hw, p, p, c)
+        x = torch.einsum("nhwpqc->nchpwq", x)
+        return x.reshape(x.shape[0], c, hw * p, hw * p)
+
+
+ZIGMA_PRESETS = {
+    "zigma_s_1": dict(patch_size=1, embed_dim=368, depth=24),
+    "zigma_s_2": dict(patch_size=2, embed_dim=368, depth=24),
+    "zigma_s_4": dict(patch_size=4, embed_dim=368, depth=24),
+    "zigma_b_1": dict(patch_size=1, embed_dim=768, depth=24),
+    "zigma_b_2": dict(patch_size=2, embed_dim=768, depth=24),
+    "zigma_b_4": dict(patch_size=4, embed_dim=768, depth=24),
+    "zigma_m_2": dict(patch_size=2, embed_dim=768, depth=48),
+    "zigma_m_4": dict(patch_size=4, embed_dim=768, depth=48),
+    "zigma_l_1": dict(patch_size=1, embed_dim=1024, depth=48),
+    "zigma_l_2": dict(patch_size=2, embed_dim=1024, depth=48),
+    "zigma_l_4": dict(patch_size=4, embed_dim=1024, depth=48),
+    "zigma_h_1": dict(patch_size=1, embed_dim=1536, depth=48),
+    "zigma_h_2": dict(patch_size=2, embed_dim=1536, depth=48),
+    "zigma_h_4": dict(patch_size=4, embed_dim=1536, depth=48),
+}
+
+
+def zigma_flops(batch: int, seq: int, embed_dim: int, depth: int,
+                d_state: int = 16, expand: int = 2,
+                bidirectional: bool = False) -> int:
+    """Analytic FLOPs of the Mamba stack: GEMMs + the reference's scan rule
+    9*B*L*D*N (the JAX package's count)."""
+    d_inner = expand * embed_dim
+    dt_rank = math.ceil(embed_dim / 16)
+    ndir = 2 if bidirectional else 1
+    per_layer = 0
+    per_layer += 2 * batch * seq * embed_dim * 2 * d_inner            # in_proj
+    per_layer += ndir * 2 * batch * seq * d_inner * (dt_rank + 2 * d_state)  # x_proj
+    per_layer += ndir * 2 * batch * seq * dt_rank * d_inner           # dt_proj
+    per_layer += ndir * 9 * batch * seq * d_inner * d_state           # scan
+    per_layer += 2 * batch * seq * d_inner * embed_dim                # out_proj
+    return per_layer * depth

@@ -1,0 +1,26 @@
+from zigma_tpu_torch.ops.paths import (
+    build_layer_paths,
+    hilbert_path,
+    random_paths,
+    reverse_permutation,
+    zigzag_path,
+)
+from zigma_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
+from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
+from zigma_tpu_torch.ops.selective_scan import selective_scan, selective_scan_ref
+from zigma_tpu_torch.ops.scan_cuda import selective_scan_fwd_cuda
+
+__all__ = [
+    "build_layer_paths",
+    "hilbert_path",
+    "random_paths",
+    "reverse_permutation",
+    "zigzag_path",
+    "add_norm",
+    "layer_norm",
+    "rms_norm",
+    "causal_conv1d",
+    "selective_scan",
+    "selective_scan_ref",
+    "selective_scan_fwd_cuda",
+]

@@ -1,0 +1,81 @@
+"""Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` file is compiled on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), keyed on a
+hash of the source and the flags.  Libraries go to ``zigma_tpu_torch/build/``
+(listed in ``.gitignore``; delete it to force a rebuild).  Nothing is built at
+import time: the first launch of a kernel builds it, or ``build_all()`` does
+all of them up front.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+__all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+SOURCES = ("selective_scan_fwd.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels are built from zigma_tpu_torch/csrc at first use")
+
+
+def _lib_path(source: str) -> str:
+    with open(os.path.join(CSRC, source), "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{key.hexdigest()[:16]}.so")
+
+
+def build_all(sources=SOURCES) -> dict:
+    """Compile every missing library.  Returns
+    ``{source: {"path", "seconds", "log"}}``; raises on a failed build."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    report = {}
+    for src in sources:
+        path = _lib_path(src)
+        if os.path.exists(path):
+            report[src] = {"path": path, "seconds": 0.0, "log": "cached"}
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} (rc {proc.returncode}):\n"
+                               f"{proc.stdout}")
+        os.replace(tmp, path)
+        report[src] = {"path": path, "seconds": time.perf_counter() - t0,
+                       "log": proc.stdout}
+    return report
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library for ``source``, building it first if needed."""
+    lib = _loaded.get(source)
+    if lib is None:
+        path = _lib_path(source)
+        if not os.path.exists(path):
+            build_all((source,))
+        lib = _loaded[source] = ctypes.CDLL(path)
+    return lib

@@ -1,0 +1,98 @@
+"""Flow-matching coupling plans (interpolants).
+
+Counterpart of ``zigma_tpu/transport/path.py``; the same math on torch
+tensors.  Time convention: t=0 is noise (x0), t=1 is data (x1);
+xt = alpha_t * x1 + sigma_t * x0.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["ICPlan", "VPCPlan", "GVPCPlan", "expand_t_like_x"]
+
+
+def expand_t_like_x(t, x):
+    """(B,) time -> broadcastable against (B, ...) data."""
+    return t.reshape(t.shape[0], *([1] * (x.dim() - 1)))
+
+
+class ICPlan:
+    """Linear coupling plan: alpha=t, sigma=1-t."""
+
+    def __init__(self, sigma: float = 0.0):
+        self.sigma = sigma
+
+    def compute_alpha_t(self, t):
+        return t, torch.ones_like(t)
+
+    def compute_sigma_t(self, t):
+        return 1 - t, -torch.ones_like(t)
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return 1 / t
+
+    def compute_drift(self, x, t):
+        t = expand_t_like_x(t, x)
+        alpha_ratio = self.compute_d_alpha_alpha_ratio_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        drift = alpha_ratio * x
+        diffusion = alpha_ratio * (sigma_t**2) - sigma_t * d_sigma_t
+        return -drift, diffusion
+
+    def get_score_from_velocity(self, velocity, x, t):
+        t = expand_t_like_x(t, x)
+        alpha_t, d_alpha_t = self.compute_alpha_t(t)
+        sigma_t, d_sigma_t = self.compute_sigma_t(t)
+        reverse_alpha_ratio = alpha_t / d_alpha_t
+        var = sigma_t**2 - reverse_alpha_ratio * d_sigma_t * sigma_t
+        return (reverse_alpha_ratio * velocity - x) / var
+
+
+class VPCPlan(ICPlan):
+    """Variance-preserving path."""
+
+    def __init__(self, sigma_min: float = 0.1, sigma_max: float = 20.0):
+        super().__init__()
+        self.sigma_min = sigma_min
+        self.sigma_max = sigma_max
+
+    def _log_mean_coeff(self, t):
+        return (-0.25 * ((1 - t) ** 2) * (self.sigma_max - self.sigma_min)
+                - 0.5 * (1 - t) * self.sigma_min)
+
+    def _d_log_mean_coeff(self, t):
+        return 0.5 * (1 - t) * (self.sigma_max - self.sigma_min) + 0.5 * self.sigma_min
+
+    def compute_alpha_t(self, t):
+        alpha_t = torch.exp(self._log_mean_coeff(t))
+        return alpha_t, alpha_t * self._d_log_mean_coeff(t)
+
+    def compute_sigma_t(self, t):
+        p_sigma_t = 2 * self._log_mean_coeff(t)
+        sigma_t = torch.sqrt(1 - torch.exp(p_sigma_t))
+        d_sigma_t = torch.exp(p_sigma_t) * (2 * self._d_log_mean_coeff(t)) / (-2 * sigma_t)
+        return sigma_t, d_sigma_t
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return self._d_log_mean_coeff(t)
+
+    def compute_drift(self, x, t):
+        t = expand_t_like_x(t, x)
+        beta_t = self.sigma_min + (1 - t) * (self.sigma_max - self.sigma_min)
+        return -0.5 * beta_t * x, beta_t / 2
+
+
+class GVPCPlan(ICPlan):
+    """Trigonometric (GVP) path."""
+
+    def compute_alpha_t(self, t):
+        return torch.sin(t * math.pi / 2), math.pi / 2 * torch.cos(t * math.pi / 2)
+
+    def compute_sigma_t(self, t):
+        return torch.cos(t * math.pi / 2), -math.pi / 2 * torch.sin(t * math.pi / 2)
+
+    def compute_d_alpha_alpha_ratio_t(self, t):
+        return math.pi / (2 * torch.tan(t * math.pi / 2))
