@@ -4,28 +4,48 @@
 
 Phases, each of which fails loudly (non-zero exit, no result line):
 
-1. device  -- the card's name and power limit (nvidia-smi);
-2. build   -- every CUDA kernel from ``zigma_tpu_torch/csrc`` with nvcc;
-3. kernel  -- the selective-scan forward kernel (K1) against its plain
-              PyTorch version on the card, on all three outputs, at the
-              flagship shape (fp32 and bf16, fused gate and not, with a
-              seed state), at a ragged L and at d_state 64 and 256; its time
-              at the main path's shape beside the plain version's and the
-              bound;
-4. main    -- the serving path through its entry point: the flagship
-              ``zigzag8_b1_pe2`` (bf16, random weights from a seed, saved as
-              a reference-format ``.pt``) sampled by ``cli.sample.main``,
-              2 batches of 16 by 50-step Euler; K1 must launch exactly
-              2 x 49 x 24 times and the plain scan never; then one flagship
-              forward through the kernel against the same forward through
-              the plain scan;
-5. profile -- the top CUDA ops of one flagship forward (torch.profiler).
+1. device     -- the card's name and power limit (nvidia-smi);
+2. build      -- every CUDA kernel from ``zigma_tpu_torch/csrc`` with nvcc
+                 (one process per source, all started together);
+3. kernel     -- the selective-scan forward kernel (K1) against its plain
+                 PyTorch version on the card, on all three outputs, at the
+                 flagship shape (fp32 and bf16, fused gate and not, with a
+                 seed state), at a ragged L and at d_state 64 and 256; its
+                 time at the main paths' shape beside the plain version's
+                 and the bound;
+4. kernel bwd -- the backward kernel (K2) against its plain version on every
+                 gradient, over the same cases (with a final-state
+                 cotangent), two launches bit-equal; its time at the
+                 training path's shape beside the plain version's and the
+                 bound;
+5. sample     -- the serving path through its entry point: the flagship
+                 ``zigzag8_b1_pe2`` (bf16, random weights from a seed, saved
+                 as a reference-format ``.pt``) sampled by
+                 ``cli.sample.main``, 2 batches of 16 by 50-step Euler; K1
+                 must launch exactly 2 x 49 x 24 times and the plain scan
+                 never; then one flagship forward through the kernel against
+                 the same forward through the plain scan;
+6. train      -- the training path through its entry point:
+                 ``cli.train.main`` with ``model=zigzag8_b1_pe2
+                 data=synthetic data.batch_size=16`` (bf16, remat,
+                 drop-path 0.1, AdamW + clip + EMA), 8 steps; every loss
+                 finite, K1 exactly 48 and K2 exactly 24 launches a step,
+                 the plain scan and plain backward never; the checkpoint's
+                 EMA loads with strict=True into a fresh flagship model
+                 through ``cli.sample.load_state_dict``;
+7. grad check -- a flagship-width ZigMa (embed 768, 1024 tokens, zigzagN8)
+                 at depth 2, fp32, batch 2, weights perturbed so every
+                 adaLN gate is open: loss and gradients through K1/K2
+                 against the same through the plain versions;
+8. profile    -- the device time of one flagship forward and of one
+                 training step, by kind (torch.profiler).
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the nvidia-smi line comes just before.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -54,9 +74,21 @@ BF16_ULP = 2.0 ** -7
 # one bf16 flagship forward, kernel vs plain scan: 24 layers of bf16
 # rounding that can flip at different places
 TOL_FORWARD = 5e-2
+# K2 against its plain version, per element as above: in fp32 the two differ
+# in summation order (dB, dC over D; dA over L) and exp/log1p ulps, at most
+# 1.3e-6 of max |ref| over these cases in K2's first run on the H100 (H100
+# 80GB HBM3, 700 W); dbias in a bf16 run sums ddelta after its bf16
+# rounding, where single roundings may flip (at most 1.4e-4 of max |ref|)
+TOL_BWD = 1e-5
+TOL_DBIAS_BF16 = 1e-3
+BWD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dbias", "dx0", "dz", "dD")
+# loss and per-parameter gradients of the fp32 depth-2 model, kernels vs
+# plain versions: the same summation-order differences through two blocks
+TOL_GRAD = 1e-4
 
 FLAGSHIP = dict(batch=16, L=1024, D=1536, N=16)
 STEPS, DEPTH, N_BATCHES, BATCH = 50, 24, 2, 16
+TRAIN_STEPS = 8
 
 
 def fail(msg):
@@ -153,6 +185,26 @@ def check_kernel_case(name, gen, batch, L, D, N, dtype, fused, with_x0,
     return d, errs
 
 
+def least_time(n_bytes, flops, transc):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations, each type over its own peak (fp32 FMA
+    work, and transcendentals on the special-function units at the SM
+    clock's maximum).  Returns (ms, "bytes" | "operations", breakdown)."""
+    import torch
+    clk_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    fma_ms = flops / FP32_FLOPS_PER_S * 1e3
+    sfu_ms = transc / (SFU_OPS_PER_CLK_PER_SM * n_sms * clk_mhz * 1e6) * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"),
+                             (max(fma_ms, sfu_ms), "operations"))
+    how = (f"{n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} "
+           f"GFLOP fp32 -> {fma_ms:.4f} ms; {transc / 1e6:.0f} M "
+           f"transcendentals on {n_sms} SMs x {SFU_OPS_PER_CLK_PER_SM}/clk at "
+           f"{clk_mhz:.0f} MHz -> {sfu_ms:.4f} ms")
+    return bound_ms, bound_by, how
+
+
 def kernel_phase(gen):
     """K1 against the plain version; times at the main path's shape."""
     import torch
@@ -200,19 +252,109 @@ def kernel_phase(gen):
     # exp per state; softplus's exp and log1p, the gate's exp per channel)
     flops = 9 * B_ * L * D * N
     transc = B_ * L * D * N + 3 * B_ * L * D
-    clk_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    fma_ms = flops / FP32_FLOPS_PER_S * 1e3
-    sfu_ms = transc / (SFU_OPS_PER_CLK_PER_SM * n_sms * clk_mhz * 1e6) * 1e3
-    bound_ms, bound_by = max((bytes_ms, "bytes"),
-                             (max(fma_ms, sfu_ms), "operations"))
+    bound_ms, bound_by, how = least_time(n_bytes, flops, transc)
     print(f"K1 at {tuple(fs.values())} bf16 fused: {ms:.4f} ms; plain "
-          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-          f"({n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; {flops / 1e9:.2f} "
-          f"GFLOP fp32 -> {fma_ms:.4f} ms; {transc / 1e6:.0f} M "
-          f"transcendentals on {n_sms} SMs x {SFU_OPS_PER_CLK_PER_SM}/clk at "
-          f"{clk_mhz:.0f} MHz -> {sfu_ms:.4f} ms)", flush=True)
+          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} ({how})",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=main_err)
+
+
+def check_bwd_case(name, gen, batch, L, D, N, dtype, fused, big_dt=False):
+    """K2 against selective_scan_bwd_ref on every output, from the chunk
+    starts K1 wrote, with a final-state cotangent; two launches bit-equal."""
+    import torch
+    from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+                                               selective_scan_fwd_cuda)
+    from zigma_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
+    d = scan_inputs(gen, batch, L, D, N, dtype, big_dt)
+    d["gy"] = torch.randn(batch, L, D, generator=gen, device="cuda").to(dtype)
+    d["g_last"] = torch.randn(batch, N, D, generator=gen, device="cuda")
+    Dk, zk = (d["Dskip"], d["z"]) if fused else (None, None)
+    with torch.no_grad():
+        _, carries, _ = selective_scan_fwd_cuda(
+            d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"], Dk, zk)
+        args = (d["u"], d["delta"], d["bias"], d["A"], d["B"], d["C"],
+                carries, d["gy"], d["g_last"], Dk, zk)
+        got = selective_scan_bwd_cuda(*args)
+        again = selective_scan_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        ref = selective_scan_bwd_ref(*args)
+        torch.cuda.synchronize()
+    errs = {}
+    for what, g, a, r in zip(BWD_NAMES, got, again, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            fail(f"{name}: {what} {tuple(g.shape)} {g.dtype} vs "
+                 f"{tuple(r.shape)} {r.dtype}")
+        if not torch.equal(g, a):
+            fail(f"{name}: {what} differs between two launches on the same "
+                 f"inputs")
+        ulp = BF16_ULP if g.dtype == torch.bfloat16 else 0.0
+        tol = (TOL_DBIAS_BF16 if what == "dbias" and dtype == torch.bfloat16
+               else TOL_BWD)
+        err, _ = rel_err(g, r)
+        over = excess(g, r, ulp)
+        if not (over <= tol):
+            fail(f"{name}: {what} max abs err {err}; beyond {ulp:g} x |ref| "
+                 f"by {over:.3e} of max |ref| > {tol}")
+        errs[what] = err
+    print(f"{name:34s} bit-equal repeat; max abs err "
+          + " ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    return d, carries, errs
+
+
+def kernel_bwd_phase(gen):
+    """K2 against its plain version; times at the training path's shape."""
+    import torch
+    from zigma_tpu_torch.ops.scan_cuda import selective_scan_bwd_cuda
+    from zigma_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
+    f, bf = torch.float32, torch.bfloat16
+    fs = FLAGSHIP
+    cases = [
+        ("flagship fp32 fused", fs, f, True),
+        ("flagship fp32 unfused", fs, f, False),
+        ("flagship bf16 fused (main path)", fs, bf, True),
+        ("flagship bf16 unfused", fs, bf, False),
+        ("ragged L=1000 bf16 fused dt>20",
+         dict(batch=2, L=1000, D=1536, N=16), bf, True),
+        ("N=64 fp32 fused", dict(batch=2, L=1000, D=256, N=64), f, True),
+        ("N=256 fp32 unfused", dict(batch=2, L=300, D=256, N=256), f, False),
+    ]
+    main = None
+    for name, shp, dtype, fused in cases:
+        d, carries, errs = check_bwd_case(name, gen, **shp, dtype=dtype,
+                                          fused=fused,
+                                          big_dt="dt>20" in name)
+        if "main path" in name:
+            main = (d, carries, max(errs.values()))
+    d, carries, main_err = main
+    B_, L, D, N = fs["batch"], fs["L"], fs["D"], fs["N"]
+    # the main path's call: no final-state cotangent
+    args = (d["u"], d["delta"], d["bias"], d["A"], d["B"], d["C"], carries,
+            d["gy"], None, d["Dskip"], d["z"])
+    with torch.no_grad():
+        ms = cuda_ms(lambda: selective_scan_bwd_cuda(*args), reps=10)
+        plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(*args), reps=1,
+                           groups=3)
+    # least time for the function: each input read once (u, delta, z, gy;
+    # B, C; the chunk starts; A, bias, D), each output written once (du,
+    # ddelta, dz; dB, dC; dA, dbias, dD; dx0)
+    item = d["u"].element_size()
+    n_chunks = carries.shape[1]
+    n_bytes = (7 * B_ * L * D * item            # u, delta, z, gy in; 3 out
+               + 4 * B_ * L * N * item          # B, C in; dB, dC out
+               + B_ * n_chunks * N * D * 4      # chunk-start states
+               + 2 * (D * N * 4 + 2 * D * 4)    # A, bias, D in; grads out
+               + B_ * N * D * 4)                # dx0
+    # fp32 work as the JAX kernel's cost estimate counts it (25 B L D N);
+    # transcendentals: one exp per state and step (the decay), softplus's
+    # exp and log1p, its sigmoid and the gate's sigmoid per channel and step
+    flops = 25 * B_ * L * D * N
+    transc = B_ * L * D * N + 4 * B_ * L * D
+    bound_ms, bound_by, how = least_time(n_bytes, flops, transc)
+    print(f"K2 at {tuple(fs.values())} bf16 fused: {ms:.4f} ms; plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} ({how})",
+          flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=main_err)
 
@@ -304,48 +446,186 @@ def main_path_phase(gen):
                              launches=launches)
 
 
-def profile_phase(model, x, t):
-    """Device time of one flagship forward, by kernel and by kind."""
+def train_phase(gen):
+    """The training entry point at the flagship config; counts K1 and K2
+    launches and the plain versions' calls over its steps."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli import train as train_cli
+    from zigma_tpu_torch.ops import scan_cuda
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        scan_cuda.selective_scan_fwd_cuda.launches = 0
+        scan_cuda.selective_scan_bwd_cuda.launches = 0
+        selective_scan_ref.calls = selective_scan_bwd_ref.calls = 0
+        t0 = time.perf_counter()
+        res = train_cli.main([
+            "model=zigzag8_b1_pe2", "data=synthetic",
+            f"data.batch_size={BATCH}", f"data.train_steps={TRAIN_STEPS}",
+            "log_every=1", f"results_dir={tmp}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = scan_cuda.selective_scan_fwd_cuda.launches
+        k2 = scan_cuda.selective_scan_bwd_cuda.launches
+        plain = (selective_scan_ref.calls, selective_scan_bwd_ref.calls)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        state = res["state"]
+        cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                     ["model=zigzag8_b1_pe2"])
+        fresh = sample_cli.build_model(cfg, device="cuda")
+        fresh.load_state_dict(sample_cli.load_state_dict(res["checkpoint"]),
+                              strict=True)
+        ckpt_name = os.path.basename(res["checkpoint"])
+    model = state.model
+    losses = [r["loss"] for r in res["records"]]
+    print(f"train CLI: {len(losses)} steps in {wall:.2f} s (model build "
+          f"included); dtype {model.dtype}, remat {model.use_checkpoint}, "
+          f"drop-path {model.drop_path_rate}; losses "
+          f"{[round(v, 4) for v in losses]}; grad norms "
+          f"{[round(r['grad_norm'], 3) for r in res['records']]}", flush=True)
+    print(f"K1 launches {k1} (expected {48 * TRAIN_STEPS}), K2 launches {k2} "
+          f"(expected {24 * TRAIN_STEPS}); plain scan / plain backward calls "
+          f"{plain}; checkpoint {ckpt_name}: EMA loaded with strict=True into "
+          f"a fresh flagship model", flush=True)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"training losses {losses}")
+    if k1 != 48 * TRAIN_STEPS or k2 != 24 * TRAIN_STEPS:
+        fail(f"K1 / K2 launched {k1} / {k2} times in {TRAIN_STEPS} steps, "
+             f"expected 48 / 24 a step")
+    if plain != (0, 0):
+        fail(f"the plain scan / backward ran {plain} times on the main path")
+    for name, p in model.named_parameters():
+        if p.dtype != torch.float32:
+            fail(f"master weight {name} is {p.dtype}")
+    steady = [1.0 / r["steps_per_sec"] for r in res["records"][1:]]
+    steps_s = len(steady) / sum(steady)
+    print(f"flagship training, batch {BATCH}: {steps_s:.4f} steps/s, "
+          f"{steps_s * BATCH:.3f} images/s (steady steps 2-{TRAIN_STEPS}; "
+          f"their median {statistics.median(steady):.4f} s, range "
+          f"{min(steady):.4f}-{max(steady):.4f} s; first step "
+          f"{1.0 / res['records'][0]['steps_per_sec']:.3f} s); "
+          f"peak device memory {peak_gb:.2f} GB", flush=True)
+    return state, dict(steps_per_s=steps_s, images_per_s=steps_s * BATCH,
+                       peak_gb=peak_gb, k1=k1, k2=k2)
+
+
+def grad_check_phase(gen):
+    """A flagship-width depth-2 model: loss and every parameter's gradient
+    through K1/K2 against the same through the plain versions."""
+    import torch
+    from zigma_tpu_torch.models import ZigMa
+    from zigma_tpu_torch.train import LATENT_SCALE, make_diffusion_loss_fn
+    from zigma_tpu_torch.transport import create_transport
+
+    model = ZigMa(in_channels=4, embed_dim=768, depth=2, img_dim=32,
+                  patch_size=1, scan_type="zigzagN8", use_pe=2,
+                  use_checkpoint=True, device="cuda", generator=gen)
+    with torch.no_grad():  # off the DiT zero-init, so every gate is open
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    x = torch.randn(2, 4, 32, 32, generator=gen, device="cuda")
+    loss_fn = make_diffusion_loss_fn(model, create_transport(),
+                                     latent_scale=LATENT_SCALE)
+    out = []
+    for backend in ("auto", "ref"):
+        for blk in model.blocks:
+            blk.mixer.scan_backend = backend
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn({"x": x}, torch.Generator(device="cuda").manual_seed(7))
+        loss.backward()
+        torch.cuda.synchronize()
+        out.append((loss.item(), {n: p.grad.clone()
+                                  for n, p in model.named_parameters()}))
+    (loss_k, gk), (loss_r, gr) = out
+    worst_name, worst = None, abs(loss_k - loss_r) / abs(loss_r)
+    print(f"loss {loss_k:.6f} through K1/K2, {loss_r:.6f} through the plain "
+          f"versions", flush=True)
+    zero = [n for n in gr if gr[n].abs().max().item() == 0]
+    if any("mixer" in n for n in zero):
+        fail(f"zero mixer gradients {zero}: the scan's gradient was not "
+             f"exercised")
+    for n in gr:
+        _, rel = rel_err(gk[n], gr[n])
+        if rel > worst:
+            worst_name, worst = n, rel
+    print(f"max over {len(gr)} parameters of max |kernel - plain| / max "
+          f"|plain|: {worst:.3e} ({worst_name}); tolerance {TOL_GRAD}",
+          flush=True)
+    if not worst <= TOL_GRAD:
+        fail(f"gradients through K1/K2 and the plain versions disagree: "
+             f"{worst_name} {worst}")
+
+
+def _kind(key):
+    k = key.lower()
+    return ("K1 selective scan fwd" if "selective_scan_fwd" in k else
+            "K2 selective scan bwd" if "selective_scan_bwd" in k else
+            "GEMM" if any(s in k for s in ("gemm", "nvjet", "cutlass",
+                                           "sm90_xmma")) else
+            "gather (scan-path permutation)" if ("index" in k
+                                                 or "gather" in k) else
+            "optimizer / EMA / clip (foreach)" if ("multi_tensor" in k
+                                                   or "foreach" in k) else
+            "reduction" if "reduce" in k else
+            "convolution (patch embed)" if "conv" in k else
+            "elementwise / copy")
+
+
+def profile_phase(what, fn):
+    """Device time of one call of ``fn`` (after one warm-up call), by kind
+    and by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode():
-        model(x, t)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(x, t)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: the CPU ops that launched them carry the
-    # same device time again
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side kernels only: the CPU ops that launched them, and
+    # annotated ranges such as the optimizer's step, carry the same time
+    # again (the filter of the profiler's own table)
     rows = [e for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     total = sum(e.self_device_time_total for e in rows)
     if total <= 0:
         fail("the profiler saw no device time")
     rows.sort(key=lambda e: -e.self_device_time_total)
-    print(f"one flagship forward: device busy {total / 1e3:.3f} ms of "
+    print(f"{what}: device busy {total / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({100 * total / wall_us:.1f}%)")
     kinds = {}
     for e in rows:
-        k = e.key.lower()
-        kind = ("K1 selective scan" if "selective_scan" in k else
-                "GEMM" if any(s in k for s in ("gemm", "nvjet", "cutlass",
-                                               "sm90_xmma")) else
-                "gather (scan-path permutation)" if "index" in k else
-                "reduction (norms)" if "reduce" in k else
-                "convolution (patch embed)" if "conv" in k else
-                "elementwise / copy")
-        kinds[kind] = kinds.get(kind, 0) + e.self_device_time_total
-    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        print(f"{us / 1e3:15.3f} {100 * us / total:6.1f}%  {kind}")
+        kind = _kind(e.key)
+        n, us = kinds.get(kind, (0, 0))
+        kinds[kind] = (n + e.count, us + e.self_device_time_total)
+    print(f"{'device ms':>15} {'share':>7} {'calls':>6}  kind")
+    for kind, (n, us) in sorted(kinds.items(), key=lambda kv: -kv[1][1]):
+        print(f"{us / 1e3:15.3f} {100 * us / total:6.1f}% {n:6d}  {kind}")
     print(f"{'self device ms':>15} {'share':>7} {'calls':>6}  kernel")
     for e in rows[:10]:
         print(f"{e.self_device_time_total / 1e3:15.3f} "
               f"{100 * e.self_device_time_total / total:6.1f}% {e.count:6d}  "
-              f"{e.key[:90]}")
+              f"{e.key[:90]}", flush=True)
+
+
+def train_step_fn(state, gen):
+    """One flagship training step on a fixed batch (for the profile)."""
+    import torch
+    from zigma_tpu_torch.train import (LATENT_SCALE, make_diffusion_loss_fn,
+                                       train_step)
+    from zigma_tpu_torch.transport import create_transport
+    loss_fn = make_diffusion_loss_fn(state.model, create_transport(),
+                                     latent_scale=LATENT_SCALE)
+    batch = {"x": torch.randn(BATCH, 4, 32, 32, generator=gen, device="cuda")}
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    return lambda: train_step(state, loss_fn, batch, step_gen)["loss"].item()
 
 
 def main():
@@ -386,20 +666,45 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase("kernel")
     k1 = kernel_phase(gen)
-    phase("main path")
+    phase("kernel bwd")
+    k2 = kernel_bwd_phase(gen)
+    phase("sample (main path of the serving slice)")
     model, x, t, e2e = main_path_phase(gen)
+    phase("train (main path of this slice)")
+    state, tr = train_phase(gen)
+    phase("grad check")
+    grad_check_phase(gen)
     phase("profile")
-    profile_phase(model, x, t)
 
-    kernels = [dict(
-        name="selective_scan_fwd", route="cuda",
-        source="zigma_tpu_torch/csrc/selective_scan_fwd.cu",
-        replaces="zigma_tpu/ops/scan_pallas.py:55",
-        launches=e2e["launches"], max_abs_err=k1["max_abs_err"], ms=k1["ms"],
-        plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-        bound_by=k1["bound_by"], library_ms=None)]
-    print(f"\nflagship images/s {e2e['images_per_s']:.4f}, forward "
-          f"{e2e['forward_ms']:.3f} ms")
+    def forward():
+        with torch.inference_mode():
+            model(x, t)
+
+    profile_phase("one flagship forward (sampling)", forward)
+    del model
+    profile_phase(f"one flagship training step (batch {BATCH})",
+                  train_step_fn(state, gen))
+
+    kernels = [
+        dict(name="selective_scan_fwd", route="cuda",
+             source="zigma_tpu_torch/csrc/selective_scan_fwd.cu",
+             replaces="zigma_tpu/ops/scan_pallas.py:55",
+             launches=tr["k1"],
+             launches_by_path={"train": tr["k1"], "sample": e2e["launches"]},
+             max_abs_err=k1["max_abs_err"], ms=k1["ms"],
+             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None),
+        dict(name="selective_scan_bwd", route="cuda",
+             source="zigma_tpu_torch/csrc/selective_scan_bwd.cu",
+             replaces="zigma_tpu/ops/scan_pallas.py:418",
+             launches=tr["k2"], launches_by_path={"train": tr["k2"]},
+             max_abs_err=k2["max_abs_err"], ms=k2["ms"],
+             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=None)]
+    print(f"\nflagship sampling {e2e['images_per_s']:.4f} images/s, forward "
+          f"{e2e['forward_ms']:.3f} ms; training {tr['steps_per_s']:.4f} "
+          f"steps/s, {tr['images_per_s']:.3f} images/s, peak "
+          f"{tr['peak_gb']:.2f} GB")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

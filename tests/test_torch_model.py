@@ -129,7 +129,17 @@ def test_later_slice_options_raise():
                dict(ssm_cfg=dict(ssm_version=2))):
         with pytest.raises(NotImplementedError, match="later slice"):
             ZigMa(**{**BASE, **kw}, depth=1, device="cpu")
-    model = ZigMa(**BASE, depth=1, scan_type="zigzagN8", device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ZigMa(**BASE, depth=1, remat_policy="scan_out", device="cpu")
+    # training runs (drop-path, remat); the label drop under it is later
+    model = ZigMa(**BASE, depth=1, scan_type="zigzagN8", use_checkpoint=True,
+                  device="cpu")
     x, t, _ = _inputs()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.from_numpy(x), torch.from_numpy(t), train=True)
+    out = model(torch.from_numpy(x), torch.from_numpy(t), train=True,
+                generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 4, 8, 8) and out.requires_grad
+    model = ZigMa(**BASE, depth=1, num_classes=5, class_dropout_prob=0.1,
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model(torch.from_numpy(x), torch.from_numpy(t),
+              torch.zeros(2, dtype=torch.long), train=True)

@@ -123,14 +123,22 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_gradients():
     args = (_t(d["u"]), _t(d["delta"]), _t(d["A"]), _t(d["B"]), _t(d["C"]),
             _t(d["bias"]))
     launches = scan_cuda.selective_scan_fwd_cuda.launches
+    launches_bwd = scan_cuda.selective_scan_bwd_cuda.launches
     with pytest.raises(ValueError, match="CUDA tensors"):
         scan_cuda.selective_scan_fwd_cuda(*args)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # the raw forward records no gradient: autograd goes through
+    # SelectiveScanFn (selective_scan), whose backward is K2
+    with pytest.raises(NotImplementedError, match="does not record a gradient"):
         scan_cuda.selective_scan_fwd_cuda(args[0].clone().requires_grad_(),
                                           *args[1:])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        scan_cuda.selective_scan_bwd_cuda(
+            args[0], args[1], args[5], *args[2:5],
+            torch.zeros(1, 1, 4, 16), args[0])
     with pytest.raises(ValueError, match="unknown backend"):
         selective_scan(*args[:5], backend="pallas")
     assert scan_cuda.selective_scan_fwd_cuda.launches == launches
+    assert scan_cuda.selective_scan_bwd_cuda.launches == launches_bwd
 
 
 @pytest.mark.parametrize("case", ["complex_A", "grouped_BC"])

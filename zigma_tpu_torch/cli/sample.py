@@ -25,6 +25,7 @@ import torch
 from zigma_tpu_torch.config import Config, load_config
 from zigma_tpu_torch.device import resolve_device
 from zigma_tpu_torch.models import ZigMa
+from zigma_tpu_torch.train.state import LATENT_SCALE
 from zigma_tpu_torch.transport import Sampler, create_transport
 from zigma_tpu_torch.utils.inference import cast_for_inference
 
@@ -34,7 +35,6 @@ __all__ = ["DEFAULT_CONFIG_DIR", "LATENT_SCALE", "build_model",
 DEFAULT_CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "configs")
-LATENT_SCALE = 0.18215  # SD VAE latent scaling (own copy of the JAX constant)
 
 
 def to_uint8_images(arr: np.ndarray) -> np.ndarray:

@@ -13,9 +13,11 @@ As in the JAX package:
 - the dt_proj bias enters the scan as ``delta_bias`` under softplus, not in
   the GEMM.
 
-On CUDA the scan is the hand-written kernel with the ``(y + u*D)*silu(z)``
-gate fused in.  Video folds, parallelN and the decode ``step``/``prefill``
-are later slices of the port and raise.
+On CUDA the scan is the hand-written kernels (K1 forward, K2 backward) with
+the ``(y + u*D)*silu(z)`` gate fused in.  The scan-path gathers go through
+``permute_tokens``, whose backward is the gather by the inverse permutation
+(not torch indexing's scatter-add).  Video folds, parallelN and the decode
+``step``/``prefill`` are later slices of the port and raise.
 """
 
 from __future__ import annotations
@@ -34,9 +36,35 @@ from zigma_tpu_torch.models.inits import (rescaled_linear_init_,
 from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
 from zigma_tpu_torch.ops.selective_scan import selective_scan
 
-__all__ = ["Mamba"]
+__all__ = ["Mamba", "permute_tokens"]
 
 _IMAGE_SCANS = ("v1", "v2", "zigzagN", "hilbertN", "randomN")
+
+
+class _PermuteTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return x.index_select(1, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_perm,) = ctx.saved_tensors
+        return g.index_select(1, inv_perm), None, None
+
+
+def permute_tokens(x, perm, inv_perm):
+    """``x[:, perm]`` whose backward is the gather ``g[:, inv_perm]``.
+
+    Counterpart of ``zigma_tpu/models/mamba.py::permute_tokens``.  Torch
+    indexing would differentiate into an ``index_put_`` with accumulate (a
+    sort and a scatter-add on the card), because it cannot know the index
+    set is a bijection; for a permutation every output row takes exactly one
+    input row, so the inverse gather is the same gradient.  ``inv_perm``
+    must be the functional inverse of ``perm`` (argsort(perm)): for the
+    image scans of this slice that is the paired ``perm_rev``.
+    """
+    return _PermuteTokens.apply(x, perm, inv_perm)
 
 
 class Mamba(nn.Module):
@@ -59,6 +87,11 @@ class Mamba(nn.Module):
                 f"(this slice: {', '.join(_IMAGE_SCANS)})")
         if (perm is None) != (perm_rev is None):
             raise ValueError("perm and its inverse perm_rev come together")
+        if perm is not None and not np.array_equal(
+                np.asarray(perm)[np.asarray(perm_rev)], np.arange(len(perm))):
+            raise ValueError("perm_rev must be the inverse of perm (image "
+                             "scans); the video pairs that are not inverses "
+                             "land in a later slice of the port")
         self.d_model, self.d_state, self.d_conv = d_model, d_state, d_conv
         self.d_inner = int(expand * d_model)
         self.dt_rank = math.ceil(d_model / 16) if dt_rank == "auto" else int(dt_rank)
@@ -142,7 +175,7 @@ class Mamba(nn.Module):
     def forward(self, x):
         """x: (batch, L, d_model) -> (batch, L, d_model)."""
         if self.perm is not None:
-            x = x[:, self.perm]
+            x = permute_tokens(x, self.perm, self.perm_rev)
         xz = dense(self.in_proj, x, self.dtype)
         x_in, z = xz.chunk(2, dim=-1)
         y = self._scan_branch("", x_in, z)
@@ -151,5 +184,5 @@ class Mamba(nn.Module):
             y = y + y_b.flip(1)
         out = dense(self.out_proj, y, self.dtype)
         if self.perm_rev is not None:
-            out = out[:, self.perm_rev]
+            out = permute_tokens(out, self.perm_rev, self.perm)
         return out

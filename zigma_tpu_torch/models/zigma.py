@@ -10,12 +10,22 @@ then a final add-norm, the FinalLayer linear and unpatchify.  The stack is a
 list of per-layer ``blocks.{i}`` (no counterpart of JAX's ``nn.scan`` over
 layers); parameter names are the reference torch ones, so a reference
 ``.pt`` state dict loads with ``load_state_dict``.  Parameters are stored in
-float32; ``dtype`` is the compute dtype (``utils.inference`` pre-casts the
-GEMM weights for serving).
+float32; ``dtype`` is the compute dtype, and each GEMM casts its weight where
+it is used, so a model being trained keeps float32 master weights
+(``utils.inference`` pre-casts the GEMM weights for serving only).
 
-This slice is the serving path.  Text cross-attention, video, use_pe=3, the
-Mamba-2 mixer, remat and drop_path (training) are later slices: asking for
-them raises.
+Training (``train=True``): stochastic depth on the JAX schedule (block i at
+``concat([0], linspace(0, rate, depth))[i]`` on its input, ``rate`` on the
+last hidden state) and, with ``use_checkpoint``, per-block remat through
+``torch.utils.checkpoint``.  The keep masks of every block and of the final
+drop-path are drawn from the caller's generator *before* the block stack and
+passed in as tensors: a recomputed block then sees the same mask, whereas a
+mask drawn inside it would come out different (checkpoint restores the
+global RNG state, not an explicit generator).
+
+Text cross-attention, video, use_pe=3, the Mamba-2 mixer, selective remat
+policies and the class-label drop under training are later slices: asking
+for them raises.
 """
 
 from __future__ import annotations
@@ -23,9 +33,11 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from zigma_tpu_torch.models.embedders import (LabelEmbedder, PatchEmbed,
                                               TimestepEmbedder, dense,
@@ -36,11 +48,28 @@ from zigma_tpu_torch.ops.norms import add_norm, layer_norm
 from zigma_tpu_torch.ops.paths import build_layer_paths
 
 __all__ = ["ZigMa", "ZigMaBlock", "FinalLayer", "ZIGMA_PRESETS", "zigma_flops",
-           "modulate"]
+           "modulate", "drop_path", "drop_path_rates"]
 
 
 def modulate(x, shift, scale):
     return x * (1 + scale[:, None]) + shift[:, None]
+
+
+def drop_path_rates(rate: float, depth: int) -> np.ndarray:
+    """Per-block stochastic-depth rates, the JAX (and reference) schedule:
+    block 0 gets 0, block i gets ``linspace(0, rate, depth)[i - 1]``."""
+    return np.concatenate([[0.0], np.linspace(0, rate, depth)])[:depth]
+
+
+def drop_path(x, rate: float, keep_mask):
+    """Stochastic depth with a given per-sample keep mask (batch,) bool:
+    dropped samples become 0, kept ones are divided by ``1 - rate`` in x's
+    dtype (``zigma_tpu/models/zigma.py::drop_path``, which draws the mask
+    itself)."""
+    mask = keep_mask.reshape((-1,) + (1,) * (x.dim() - 1))
+    x = torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    keep = torch.tensor(max(1.0 - rate, 1e-6), dtype=x.dtype, device=x.device)
+    return x / keep
 
 
 class _Norm(nn.Module):
@@ -81,7 +110,10 @@ class ZigMaBlock(nn.Module):
         nn.init.zeros_(self.adaLN_modulation[1].bias)
         self.mixer.reset_parameters(generator)
 
-    def forward(self, x, residual, c):
+    def forward(self, x, residual, c, drop=None):
+        """``drop``: optional ``(rate, keep_mask)`` stochastic depth on x."""
+        if drop is not None:
+            x = drop_path(x, *drop)
         x, residual = add_norm(x, self.norm.weight, self.norm.bias, residual,
                                kind=self.kind, eps=self.eps, prenorm=True,
                                residual_in_fp32=self.residual_in_fp32)
@@ -146,10 +178,15 @@ class ZigMa(nn.Module):
         self.num_classes, self.use_pe, self.dtype = num_classes, use_pe, dtype
         self.rms_norm, self.norm_epsilon = rms_norm, norm_epsilon
         self.residual_in_fp32 = residual_in_fp32
-        # training-time features, honoured by the training slice; a forward
-        # that needs them raises (see forward)
         self.drop_path_rate, self.use_checkpoint = drop_path_rate, use_checkpoint
-        self.remat_policy = remat_policy
+        self.class_dropout_prob = class_dropout_prob
+        if remat_policy is not None:
+            if remat_policy not in ("scan_out", "dots", "scan_out+dots"):
+                raise ValueError(f"unknown remat_policy {remat_policy!r}; one "
+                                 f"of dots, scan_out, scan_out+dots or None")
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r} (selective remat) lands in a "
+                f"later slice of the port; None remats whole blocks")
 
         side = img_dim // patch_size
         n_patches = side * side
@@ -191,11 +228,15 @@ class ZigMa(nn.Module):
             if self.use_pe == 2:
                 self.pos_embed.zero_()
 
-    def forward(self, x, t, y=None, train: bool = False):
-        if train or (self.use_checkpoint and torch.is_grad_enabled()):
+    def forward(self, x, t, y=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x (B, C, H, W), t (B,) in [0, 1], y (B,) labels or None.
+        ``train`` turns on stochastic depth, whose keep masks come from
+        ``generator`` (the default generator when None)."""
+        if train and self.num_classes > 0 and self.class_dropout_prob > 0:
             raise NotImplementedError(
-                "training (drop_path, remat, the backward scan kernel) lands "
-                "with the training slice; sample under torch.inference_mode()")
+                "the class-label drop under training (LabelEmbedder's CFG "
+                "drop) lands in a later slice of the port")
         h = self.x_embedder(x)
         c = self.t_embedder((t * 1000.0).float())
         if self.num_classes > 0:
@@ -204,9 +245,24 @@ class ZigMa(nn.Module):
             h = h + self.pe_table.to(self.dtype)[None]
         elif self.use_pe == 2:
             h = h + self.pos_embed.to(self.dtype)
+        drops = [None] * (self.depth + 1)
+        if train and self.drop_path_rate > 0:
+            # every mask before the stack: a remat recompute must see the same
+            rates = [*drop_path_rates(self.drop_path_rate, self.depth),
+                     self.drop_path_rate]
+            u = torch.rand((len(rates), x.shape[0]), generator=generator,
+                           device=x.device)
+            drops = [(float(r), u[i] < 1.0 - r) for i, r in enumerate(rates)]
+        remat = self.use_checkpoint and torch.is_grad_enabled()
         residual = None
-        for block in self.blocks:
-            h, residual = block(h, residual, c)
+        for block, drop in zip(self.blocks, drops):
+            if remat:
+                h, residual = checkpoint(block, h, residual, c, drop,
+                                         use_reentrant=False)
+            else:
+                h, residual = block(h, residual, c, drop)
+        if drops[-1] is not None:
+            h = drop_path(h, *drops[-1])
         h = add_norm(h, self.norm_f.weight, self.norm_f.bias, residual,
                      kind="rms" if self.rms_norm else "layer",
                      eps=self.norm_epsilon, prenorm=False,

@@ -7,8 +7,11 @@ from zigma_tpu_torch.ops.paths import (
 )
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
 from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
-from zigma_tpu_torch.ops.selective_scan import selective_scan, selective_scan_ref
-from zigma_tpu_torch.ops.scan_cuda import selective_scan_fwd_cuda
+from zigma_tpu_torch.ops.selective_scan import (SelectiveScanFn, selective_scan,
+                                                selective_scan_bwd_ref,
+                                                selective_scan_ref)
+from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+                                           selective_scan_fwd_cuda)
 
 __all__ = [
     "build_layer_paths",
@@ -20,7 +23,10 @@ __all__ = [
     "layer_norm",
     "rms_norm",
     "causal_conv1d",
+    "SelectiveScanFn",
     "selective_scan",
     "selective_scan_ref",
+    "selective_scan_bwd_ref",
     "selective_scan_fwd_cuda",
+    "selective_scan_bwd_cuda",
 ]

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file is compiled on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), keyed on a
-hash of the source and the flags.  Libraries go to ``zigma_tpu_torch/build/``
+hash of the source and the flags; ``build_all`` starts one ``nvcc`` per
+missing library, all at once, and waits for them together.  Libraries go to ``zigma_tpu_torch/build/``
 (listed in ``.gitignore``; delete it to force a rebuild).  Nothing is built at
 import time: the first launch of a kernel builds it, or ``build_all()`` does
 all of them up front.
@@ -22,7 +23,7 @@ __all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("selective_scan_fwd.cu",)
+SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,26 +48,33 @@ def _lib_path(source: str) -> str:
 
 
 def build_all(sources=SOURCES) -> dict:
-    """Compile every missing library.  Returns
-    ``{source: {"path", "seconds", "log"}}``; raises on a failed build."""
+    """Compile every missing library, one ``nvcc`` per source, in parallel.
+    Returns ``{source: {"path", "seconds", "log"}}``; raises on a failed
+    build (after every started ``nvcc`` has ended)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    report = {}
+    report, running = {}, {}
+    t0 = time.perf_counter()
     for src in sources:
         path = _lib_path(src)
         if os.path.exists(path):
             report[src] = {"path": path, "seconds": 0.0, "log": "cached"}
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[src] = (proc, path, tmp)
+    failed = []
+    for src, (proc, path, tmp) in running.items():
+        log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} (rc {proc.returncode}):\n"
-                               f"{proc.stdout}")
+            failed.append(f"nvcc failed on {src} (rc {proc.returncode}):\n{log}")
+            continue
         os.replace(tmp, path)
         report[src] = {"path": path, "seconds": time.perf_counter() - t0,
-                       "log": proc.stdout}
+                       "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return report
 
 

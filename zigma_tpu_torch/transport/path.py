@@ -50,6 +50,27 @@ class ICPlan:
         var = sigma_t**2 - reverse_alpha_ratio * d_sigma_t * sigma_t
         return (reverse_alpha_ratio * velocity - x) / var
 
+    def compute_mu_t(self, t, x0, x1):
+        t = expand_t_like_x(t, x1)
+        alpha_t, _ = self.compute_alpha_t(t)
+        sigma_t, _ = self.compute_sigma_t(t)
+        return alpha_t * x1 + sigma_t * x0
+
+    def compute_xt(self, t, x0, x1):
+        return self.compute_mu_t(t, x0, x1)
+
+    def compute_ut(self, t, x0, x1, xt):
+        t = expand_t_like_x(t, x1)
+        _, d_alpha_t = self.compute_alpha_t(t)
+        _, d_sigma_t = self.compute_sigma_t(t)
+        return d_alpha_t * x1 + d_sigma_t * x0
+
+    def plan(self, t, x0, x1):
+        """(t, xt, ut): the interpolant and its velocity target."""
+        xt = self.compute_xt(t, x0, x1)
+        ut = self.compute_ut(t, x0, x1, xt)
+        return t, xt, ut
+
 
 class VPCPlan(ICPlan):
     """Variance-preserving path."""

@@ -1,10 +1,15 @@
 """Flow-matching transport and its ODE sampler.
 
-Counterpart of ``zigma_tpu/transport/transport.py`` for the serving path:
-``create_transport``, ``Transport.check_interval`` / ``get_drift`` and
-``Sampler.sample_ode`` with euler and heun.  Training losses, dopri5, the
-SDE sampler and likelihood are later slices of the port; the sampler raises
-for them at construction, as the JAX one does for unknown methods.
+Counterpart of ``zigma_tpu/transport/transport.py`` for the sampling and
+training paths: ``create_transport``, ``mean_flat``, ``Transport.sample`` /
+``training_losses`` / ``check_interval`` / ``get_drift`` and
+``Sampler.sample_ode`` with euler and heun.  dopri5, the SDE sampler and
+likelihood are later slices of the port; the sampler raises for them at
+construction, as the JAX one does for unknown methods.
+
+Random draws take an explicit ``torch.Generator``.  Its stream is not
+``jax.random``'s, so ``training_losses`` also takes injected ``t`` and
+``x0`` (the tests feed it the JAX draw).
 
 Model interface: ``model_fn(x, t, **model_kwargs)`` with x (B, ...) and
 t (B,) in [0, 1].
@@ -13,13 +18,16 @@ t (B,) in [0, 1].
 from __future__ import annotations
 
 import enum
+from typing import Callable, Optional
+
+import torch
 
 from zigma_tpu_torch.transport import path as path_mod
 from zigma_tpu_torch.transport.integrators import odeint_fixed
 from zigma_tpu_torch.transport.path import expand_t_like_x
 
 __all__ = ["ModelType", "PathType", "WeightType", "Transport", "Sampler",
-           "create_transport"]
+           "create_transport", "mean_flat"]
 
 
 class ModelType(enum.Enum):
@@ -40,8 +48,13 @@ class WeightType(enum.Enum):
     LIKELIHOOD = enum.auto()
 
 
+def mean_flat(x):
+    """Mean over all non-batch dims."""
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
 class Transport:
-    """Interpolant plus drift wrappers."""
+    """Interpolant, loss and drift wrappers."""
 
     def __init__(self, *, model_type: ModelType, path_type: PathType,
                  loss_type: WeightType, train_eps: float, sample_eps: float):
@@ -72,6 +85,50 @@ class Transport:
         if reverse:
             t0, t1 = 1 - t0, 1 - t1
         return t0, t1
+
+    def sample(self, x1, generator: Optional[torch.Generator] = None):
+        """Draw (t, x0, x1) for a batch: x0 standard normal like x1, t
+        uniform float32 on the training interval."""
+        x0 = torch.randn(x1.shape, generator=generator, dtype=x1.dtype,
+                         device=x1.device)
+        t0, t1 = self.check_interval(self.train_eps, self.sample_eps)
+        t = torch.rand((x1.shape[0],), generator=generator,
+                       dtype=torch.float32, device=x1.device) * (t1 - t0) + t0
+        return t, x0, x1
+
+    def training_losses(self, model_fn: Callable, x1,
+                        generator: Optional[torch.Generator] = None,
+                        model_kwargs=None, t=None, x0=None):
+        """Velocity / noise / score flow-matching loss.  Returns a dict
+        with 'loss' (B,) and 'pred'.  ``t`` and ``x0`` replace the draw
+        when given (both together)."""
+        model_kwargs = model_kwargs or {}
+        if (t is None) != (x0 is None):
+            raise ValueError("inject t and x0 together")
+        if t is None:
+            t, x0, x1 = self.sample(x1, generator)
+        t, xt, ut = self.path_sampler.plan(t, x0, x1)
+        model_output = model_fn(xt, t, **model_kwargs)
+
+        terms = {"pred": model_output}
+        if self.model_type == ModelType.VELOCITY:
+            terms["loss"] = mean_flat((model_output - ut) ** 2)
+        else:
+            _, drift_var = self.path_sampler.compute_drift(xt, t)
+            sigma_t, _ = self.path_sampler.compute_sigma_t(
+                expand_t_like_x(t, xt))
+            if self.loss_type == WeightType.VELOCITY:
+                weight = (drift_var / sigma_t) ** 2
+            elif self.loss_type == WeightType.LIKELIHOOD:
+                weight = drift_var / (sigma_t ** 2)
+            else:
+                weight = 1.0
+            if self.model_type == ModelType.NOISE:
+                terms["loss"] = mean_flat(weight * (model_output - x0) ** 2)
+            else:
+                terms["loss"] = mean_flat(
+                    weight * (model_output * sigma_t + x0) ** 2)
+        return terms
 
     def get_drift(self):
         def score_ode(x, t, model_fn, **kw):
