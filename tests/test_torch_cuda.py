@@ -12,6 +12,8 @@ run sums ddelta after its rounding to bf16, where single roundings may flip:
 floor 1e-3 (measured at most 1.4e-4).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -39,6 +41,20 @@ def _inputs(gen, batch, L, D, N, dtype):
                 z=r(batch, L, D).to(dtype), x0=r(batch, N, D))
 
 
+def _long_memory_inputs(gen, batch, L, D, N, dtype):
+    """The flagship's own init (models/mamba.py): dt = softplus(delta +
+    bias) in about 0.001-0.1 and A = -(1 ... N), so decays sit near 0.999."""
+    d = _inputs(gen, batch, L, D, N, dtype)
+    dt = torch.exp(torch.rand(D, generator=gen, device="cuda")
+                   * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    d["bias"] = dt + torch.log(-torch.expm1(-dt))
+    d["delta"] = (0.1 * torch.randn(batch, L, D, generator=gen,
+                                    device="cuda")).to(dtype)
+    d["A"] = -torch.arange(1, N + 1, dtype=torch.float32,
+                           device="cuda").repeat(D, 1)
+    return d
+
+
 TOL_FP32 = 1e-4
 TOL_BWD = 1e-5
 TOL_DBIAS_BF16 = 1e-3
@@ -56,8 +72,13 @@ def _rel(a, b, ulp=0.0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("with_x0", [True, False])
-@pytest.mark.parametrize("L,D,N", [(300, 96, 16), (129, 64, 64), (40, 32, 256),
-                                   (7, 50, 5)])
+@pytest.mark.parametrize("L,D,N", [
+    (300, 96, 16), (129, 64, 64), (40, 32, 256), (7, 50, 5),
+    # the edges of K1's tiling: L below, at and just past a 128-step chunk
+    # (and a single step), D not a multiple of a block's channels, d_state
+    # 1 and 17 (one lane, 7 states padded; 4 lanes, 15 states padded)
+    (1, 64, 16), (127, 64, 16), (128, 100, 16), (129, 100, 16),
+    (50, 70, 1), (50, 40, 17)])
 def test_kernel_matches_plain_version(gen, dtype, fused, with_x0, L, D, N):
     d = _inputs(gen, 2, L, D, N, dtype)
     Dk, zk = (d["Dskip"], d["z"]) if fused else (None, None)
@@ -72,6 +93,59 @@ def test_kernel_matches_plain_version(gen, dtype, fused, with_x0, L, D, N):
     assert _rel(got[0], ref[0], ulp) <= TOL_FP32
     assert _rel(got[1], ref[1]) <= TOL_FP32
     assert _rel(got[2], ref[2]) <= TOL_FP32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_kernel_matches_plain_version_long_memory(gen, dtype, fused):
+    """Decays near 0.999 over L = 1024: the decay's fast exponential adds
+    up its error over about a thousand steps."""
+    d = _long_memory_inputs(gen, 2, 1024, 64, 16, dtype)
+    Dk, zk = (d["Dskip"], d["z"]) if fused else (None, None)
+    with torch.inference_mode():
+        got = scan_cuda.selective_scan_fwd_cuda(
+            d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"], Dk, zk)
+        ref = selective_scan_ref(d["u"], d["delta"], d["A"], d["B"], d["C"],
+                                 Dk, zk, d["bias"], True)
+    torch.cuda.synchronize()
+    ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+    assert _rel(got[0], ref[0], ulp) <= TOL_FP32
+    assert _rel(got[1], ref[1]) <= TOL_FP32
+    assert _rel(got[2], ref[2]) <= TOL_FP32
+
+
+@pytest.mark.parametrize("given", ["D", "z"])
+def test_no_grad_scan_with_only_D_or_only_z(gen, given):
+    """Without a gradient, D alone or z alone runs K1's core scan and adds
+    the skip term or the gate in fp32 torch ops.  fp32, so the comparison
+    sees the kernel and not a bf16 rounding of the core output."""
+    d = _inputs(gen, 2, 200, 96, 16, torch.float32)
+    Dk = d["Dskip"] if given == "D" else None
+    zk = d["z"] if given == "z" else None
+    args = (d["u"], d["delta"], d["A"], d["B"], d["C"], Dk, zk, d["bias"])
+    launches, calls = (scan_cuda.selective_scan_fwd_cuda.launches,
+                       selective_scan_ref.calls)
+    with torch.inference_mode():
+        got, x_last = selective_scan(*args, delta_softplus=True,
+                                     return_last_state=True)
+        assert scan_cuda.selective_scan_fwd_cuda.launches == launches + 1
+        assert selective_scan_ref.calls == calls
+        ref, x_ref = selective_scan(*args, delta_softplus=True,
+                                    return_last_state=True, backend="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert _rel(got, ref) <= TOL_FP32
+    assert _rel(x_last, x_ref) <= TOL_FP32
+
+
+def test_flagship_instance_launch_info(gen):
+    """The flagship's K1 instance (d_state 16, L 1024, bf16) keeps its
+    state in registers without spilling and fits more than one block an
+    SM."""
+    info = scan_cuda.selective_scan_fwd_launch_info(16, 1024, torch.bfloat16)
+    assert info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2
+    assert info["threads"] % 32 == 0 and 128 % info["steps_per_chunk"] == 0
 
 
 def test_cuda_tensor_dispatches_to_kernel(gen):

@@ -108,6 +108,28 @@ def test_bf16_inputs_match_golden_model():
     np.testing.assert_allclose(yf, ygf, rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("given", ["D", "z"])
+def test_only_D_or_only_z_matches_jax(given):
+    """The skip term without the gate, or the gate without the skip term,
+    without a gradient: the port's selective_scan against the JAX
+    function's plain path, fp32, TOL."""
+    from zigma_tpu.ops.selective_scan import selective_scan as jax_scan
+    d = _inputs(7, L=160, D=48, N=16)
+    Dk = d["Dskip"] if given == "D" else None
+    zk = d["z"] if given == "z" else None
+    j = lambda a: None if a is None else jnp.asarray(a)
+    y_j = jax_scan(j(d["u"]), j(d["delta"]), j(d["A"]), j(d["B"]), j(d["C"]),
+                   j(Dk), j(zk), j(d["bias"]), delta_softplus=True,
+                   backend="ref")
+    with torch.no_grad():
+        y = selective_scan(_t(d["u"]), _t(d["delta"]), _t(d["A"]), _t(d["B"]),
+                           _t(d["C"]), None if Dk is None else _t(Dk),
+                           None if zk is None else _t(zk), _t(d["bias"]),
+                           delta_softplus=True)
+    assert tuple(y.shape) == tuple(y_j.shape)
+    assert _err(y, y_j) <= TOL
+
+
 def test_cpu_tensor_dispatches_to_plain_version():
     d = _inputs(4, L=32, D=16, N=4)
     calls, launches = selective_scan_ref.calls, scan_cuda.selective_scan_fwd_cuda.launches

@@ -2,9 +2,11 @@
 
 Each ``csrc/*.cu`` file is compiled on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), keyed on a
-hash of the source and the flags; ``build_all`` starts one ``nvcc`` per
-missing library, all at once, and waits for them together.  Libraries go to ``zigma_tpu_torch/build/``
-(listed in ``.gitignore``; delete it to force a rebuild).  Nothing is built at
+hash of the flags, the source and every ``csrc`` header it includes
+(``#include "..."``, followed through headers); ``build_all`` starts one
+``nvcc`` per missing library, all at once, and waits for them together.
+Libraries go to ``zigma_tpu_torch/build/`` (listed in ``.gitignore``;
+delete it to force a rebuild).  Nothing is built at
 import time: the first launch of a kernel builds it, or ``build_all()`` does
 all of them up front.
 """
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,6 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _loaded: dict = {}
 
@@ -40,9 +44,25 @@ def nvcc_path() -> str:
                        "kernels are built from zigma_tpu_torch/csrc at first use")
 
 
+def _sources_of(source: str) -> list:
+    """``source`` and the ``csrc`` files it includes with ``#include "..."``,
+    directly or through other headers, each once, in the order met."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.append(name)
+        with open(os.path.join(CSRC, name), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _sources_of(source):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            key.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{key.hexdigest()[:16]}.so")
 

@@ -24,8 +24,8 @@ import torch
 
 from zigma_tpu_torch.ops import _build
 
-__all__ = ["selective_scan_fwd_cuda", "selective_scan_bwd_cuda", "CARRY_EVERY",
-           "MAX_D_STATE"]
+__all__ = ["selective_scan_fwd_cuda", "selective_scan_bwd_cuda",
+           "selective_scan_fwd_launch_info", "CARRY_EVERY", "MAX_D_STATE"]
 
 SOURCE = "selective_scan_fwd.cu"
 SOURCE_BWD = "selective_scan_bwd.cu"
@@ -45,6 +45,26 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def selective_scan_fwd_launch_info(N: int, L: int, dtype) -> dict:
+    """The forward kernel's launch shape and occupancy for d_state ``N``,
+    length ``L`` and ``dtype`` on the current card: registers and spill
+    bytes a thread (from the compiled kernel), resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads and
+    channels a block, steps staged a chunk and dynamic shared bytes a block.
+    Launches nothing."""
+    fn = _build.load(SOURCE).zt_selective_scan_fwd_info
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    keys = ("registers", "spill_bytes", "blocks_per_sm", "threads",
+            "channels_per_block", "steps_per_chunk", "shared_bytes")
+    info = (ctypes.c_int * len(keys))()
+    err = fn(N, L, _DTYPES[dtype], ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"selective_scan_fwd launch info failed: CUDA error "
+                           f"{err} at N={N}, L={L}, {dtype}")
+    return dict(zip(keys, info))
 
 
 def _bwd_kernel():

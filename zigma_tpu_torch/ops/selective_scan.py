@@ -234,10 +234,11 @@ def selective_scan(u, delta, A, B, C,
     backend: "auto" (CUDA tensor -> the kernels, CPU tensor -> the plain
     versions) or "ref" (the plain versions anywhere).  On a CUDA tensor
     "auto" has no fallback: the kernels launch or raise (they need
-    delta_softplus).  When a gradient is needed the scan goes through
-    ``SelectiveScanFn``: with D and z both given the gate is fused into both
-    kernels, otherwise the skip term and the gate are composed around the
-    core scan in torch ops, as ``selective_scan_pallas`` does in jnp.
+    delta_softplus).  With D and z both given the gate is fused into the
+    kernels; with only one of them the skip term or the gate is composed
+    around the core scan in torch ops, as ``selective_scan_pallas`` does in
+    jnp, with a gradient or without.  When a gradient is needed the scan
+    goes through ``SelectiveScanFn``.
     Returns out (batch, L, d) in u's dtype, and with ``return_last_state``
     also the final state (batch, d, N) fp32 (the JAX function's layout).
     """
@@ -262,16 +263,28 @@ def selective_scan(u, delta, A, B, C,
             return SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, D, z,
                                          delta_softplus, use_ref)
         y = SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, None, None,
-                                  delta_softplus, use_ref).float()
-        if D is not None:
-            y = y + u.float() * D.float()
-        if z is not None:
-            y = y * F.silu(z.float())
-        return y.to(u.dtype)
+                                  delta_softplus, use_ref)
+        return _skip_and_gate(y, u, D, z)
     if use_ref:
         out, _, x_last = selective_scan_ref(u, delta, A, B, C, D, z,
                                             delta_bias, delta_softplus)
-    else:
+    elif (D is None) == (z is None):
         out, _, x_last = selective_scan_fwd_cuda(
             u, delta, A, B, C, delta_bias, D, z, return_carries=False)
+    else:  # the kernel fuses the skip term and the gate only together
+        out, _, x_last = selective_scan_fwd_cuda(
+            u, delta, A, B, C, delta_bias, return_carries=False)
+        out = _skip_and_gate(out, u, D, z)
     return (out, x_last.transpose(1, 2)) if return_last_state else out
+
+
+def _skip_and_gate(y, u, D, z):
+    """``(y + u * D) * silu(z)`` in fp32, each factor only where given, as
+    ``selective_scan_pallas`` composes it around the core scan in jnp;
+    returns u's dtype."""
+    y = y.float()
+    if D is not None:
+        y = y + u.float() * D.float()
+    if z is not None:
+        y = y * F.silu(z.float())
+    return y.to(u.dtype)
