@@ -19,10 +19,14 @@ Phases, each of which fails loudly (non-zero exit, no result line):
                  does, beside the plain version's and the bound; its
                  registers and resident blocks an SM;
 4. kernel bwd -- the backward kernel (K2) against its plain version on every
-                 gradient, over the same cases (with a final-state
-                 cotangent), two launches bit-equal; its time at the
-                 training path's shape beside the plain version's and the
-                 bound;
+                 gradient, over the same cases and its own tiling's edges
+                 (with a final-state cotangent; z, B and C strided as the
+                 model passes them), two launches bit-equal; K2 and the
+                 plain fp32 version against a float64 adjoint at the
+                 flagship shape, short and long memory, three draws each;
+                 K2's time at the training path's shape beside the plain
+                 version's and the bound; its registers and resident blocks
+                 an SM;
 5. sample     -- the serving path through its entry point: the flagship
                  ``zigzag8_b1_pe2`` (bf16, random weights from a seed, saved
                  as a reference-format ``.pt``) sampled by
@@ -77,16 +81,25 @@ SFU_OPS_PER_CLK_PER_SM = 16
 # ulp away, at most 2^-7 of |ref| (ulp = BF16_ULP; 0 for fp32 outputs)
 TOL_FP32 = 1e-4
 BF16_ULP = 2.0 ** -7
-# K1 and the plain fp32 version against a float64 truth, per output, each as
-# max |err| / max |truth|: K1 may be at most this multiple of the plain
-# version's error (taken as at least FP32_EPS), after one bf16 ulp of
-# |truth| per element on bf16 outputs.  The first run on the H100 (H100
+# K1 (and K2) and the plain fp32 version against a float64 truth, per
+# output, each as max |err| / max |truth|: the kernel may be at most this
+# multiple of the plain version's error (taken as at least FP32_EPS), after
+# one bf16 ulp of |truth| per element on bf16 outputs.  The first run on the H100 (H100
 # 80GB HBM3, 700 W) measured at most 1.66x, on the long-memory carries in
 # fp32 (7.5e-7 against 4.5e-7): the fast exponential errs no more than the
 # accurate expf around which the plain version is built, and the two differ
 # in summation order.  A per-step bias of the exponential would add up over
 # the ~1000-step memory of the long-memory case and show as tens of times.
+# K2 (same card, 16 draws over its four cases in two runs) read at most
+# 2.50x, on dA, which read 0.39-2.50x at short memory and 1.58-2.42x at
+# long memory.  The outputs that use the recomputed states (dA, dB, dC,
+# ddelta) carry the forward's state error, which at long memory is K1's (up
+# to 1.66x the plain forward's, as above), and dA sums 16 k such terms an
+# element; du and dx0, which do not use the states, read at most 1.23x.
 TOL_TRUTH_MULT = 4.0
+# K2's truth gate runs each of its four cases (short and long memory, fp32
+# and bf16) on this many successive draws of the generator
+TRUTH_BWD_DRAWS = 3
 FP32_EPS = 2.0 ** -23
 # one bf16 flagship forward, kernel vs plain scan: 24 layers of bf16
 # rounding that can flip at different places
@@ -97,6 +110,15 @@ TOL_FORWARD = 5e-2
 # 80GB HBM3, 700 W); dbias in a bf16 run sums ddelta after its bf16
 # rounding, where single roundings may flip (at most 1.4e-4 of max |ref|)
 TOL_BWD = 1e-5
+# K2 against its plain version at long memory (decays near 0.999): the
+# adjoint carries each decay's rounding over about a thousand steps, the
+# plain version's (accurate expf) as much as K2's (ex2.approx), so on the
+# fp32 outputs the two may differ by the sum of their errors against the
+# float64 adjoint.  On dx0 (same card, 12 flagship draws) the plain
+# version's reached 7.5e-6 of max |truth|, K2's 3.2e-6; K2 against the plain
+# version read 8.1e-6 to 9.5e-6 of max |ref| on dx0 in the three
+# long-memory cases below, above TOL_BWD's reach for this kind of input
+TOL_BWD_LONG = 3e-5
 TOL_DBIAS_BF16 = 1e-3
 BWD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dbias", "dx0", "dz", "dD")
 # loss and per-parameter gradients of the fp32 depth-2 model, kernels vs
@@ -235,17 +257,18 @@ def least_time(n_bytes, flops, transc):
     return bound_ms, bound_by, how
 
 
-def truth_f64(d):
-    """The fused scan of ``scan_inputs`` in float64 on the card, step by
+def truth_f64(d, device="cuda"):
+    """The fused scan of ``scan_inputs`` in float64 on ``device``, step by
     step, with no seed state: (y, chunk-start states, final state)."""
     import torch
     import torch.nn.functional as F
-    u, B, C = d["u"].double(), d["B"].double(), d["C"].double()
-    dt = F.softplus(d["delta"].double() + d["bias"].double())  # threshold 20
+    f64 = {k: v.to(device, torch.float64) for k, v in d.items()}
+    u, B, C = f64["u"], f64["B"], f64["C"]
+    dt = F.softplus(f64["delta"] + f64["bias"])  # threshold 20
     dtu = dt * u
-    At = d["A"].double().t()  # (N, D)
+    At = f64["A"].t()  # (N, D)
     batch, L, D = u.shape
-    x = torch.zeros((batch, At.shape[0], D), dtype=torch.float64, device="cuda")
+    x = torch.zeros((batch, At.shape[0], D), dtype=torch.float64, device=device)
     carries, ys = [], []
     for t in range(L):
         if t % 128 == 0:
@@ -253,9 +276,56 @@ def truth_f64(d):
         x = (torch.exp(dt[:, t, None, :] * At) * x
              + dtu[:, t, None, :] * B[:, t, :, None])
         ys.append(torch.einsum("bnd,bn->bd", x, C[:, t]))
-    y = ((torch.stack(ys, dim=1) + u * d["Dskip"].double())
-         * F.silu(d["z"].double()))
+    y = (torch.stack(ys, dim=1) + u * f64["Dskip"]) * F.silu(f64["z"])
     return y, torch.stack(carries, dim=1), x
+
+
+def truth_bwd_f64(d, device="cuda"):
+    """The adjoint of ``truth_f64``'s fused scan in float64 on ``device``,
+    with ``d["gy"]`` the cotangent of the gated output and none of the final
+    state.  Its own loop: each 128-step chunk's states are recomputed from
+    the float64 chunk starts, then walked in reverse.  Returns (du, ddelta,
+    dA, dB, dC, dbias, dx0, dz, dD), the outputs of the kernel, in
+    float64; dbias sums the unrounded ddelta."""
+    import torch
+    f64 = {k: v.to(device, torch.float64) for k, v in d.items()}
+    u, B, C, z, g_out = f64["u"], f64["B"], f64["C"], f64["z"], f64["gy"]
+    pre = f64["delta"] + f64["bias"]
+    dt = torch.where(pre <= 20, torch.log1p(torch.exp(pre)), pre)
+    sig = torch.sigmoid(pre)
+    dtu = dt * u
+    At, Dsk = f64["A"].t(), f64["Dskip"]  # (N, D), (D,)
+    sig_z = torch.sigmoid(z)
+    gyr = g_out * z * sig_z  # cotangent of the raw scan output
+    _, starts, _ = truth_f64(d, device)
+    batch, L, D = u.shape
+    N = At.shape[0]
+    du, dd, y = (torch.zeros_like(u) for _ in range(3))
+    dB = torch.zeros((batch, L, N), dtype=torch.float64, device=device)
+    dC = torch.zeros_like(dB)
+    dA = torch.zeros((N, D), dtype=torch.float64, device=device)
+    g_next = torch.zeros((batch, N, D), dtype=torch.float64, device=device)
+    for k in reversed(range(starts.shape[1])):
+        t0, t1 = 128 * k, min(L, 128 * (k + 1))
+        xs, decays = [starts[:, k]], []  # xs[j]: the state before step t0 + j
+        for t in range(t0, t1):
+            decays.append(torch.exp(dt[:, t, None, :] * At))
+            xs.append(decays[-1] * xs[-1] + dtu[:, t, None, :] * B[:, t, :, None])
+        for j in reversed(range(t1 - t0)):
+            t = t0 + j
+            g = gyr[:, t, None, :] * C[:, t, :, None] + g_next
+            dla = g * decays[j] * xs[j]
+            gB = (g * B[:, t, :, None]).sum(1)
+            dd[:, t] = ((dla * At).sum(1) + gB * u[:, t]) * sig[:, t]
+            du[:, t] = dt[:, t] * gB + gyr[:, t] * Dsk
+            dA += (dla * dt[:, t, None, :]).sum(0)
+            dB[:, t] = (g * dtu[:, t, None, :]).sum(2)
+            dC[:, t] = (gyr[:, t, None, :] * xs[j + 1]).sum(2)
+            y[:, t] = (C[:, t, :, None] * xs[j + 1]).sum(1)
+            g_next = decays[j] * g
+    dz = g_out * (y + u * Dsk) * (sig_z * (1 + z * (1 - sig_z)))
+    return (du, dd, dA.t(), dB, dC, dd.sum((0, 1)), g_next, dz,
+            (gyr * u).sum((0, 1)))
 
 
 def truth_case(name, gen, batch, L, D, N, dtype, long_memory=False):
@@ -292,6 +362,24 @@ def truth_case(name, gen, batch, L, D, N, dtype, long_memory=False):
     print(f"{name:34s} vs f64, of max |truth|: " + "; ".join(parts),
           flush=True)
     return worst
+
+
+def print_instance(kernel, info, staged, batch, D):
+    """The ``K1 flagship instance:`` / ``K2 flagship instance:`` line from
+    a kernel's launch info."""
+    import torch
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_blocks = -(-D // info["channels_per_block"]) * batch
+    warps = info["blocks_per_sm"] * info["threads"] // 32
+    print(f"{kernel} flagship instance: {info['registers']} registers a "
+          f"thread, {info['spill_bytes']} spill bytes, {info['threads']} "
+          f"threads a block, {info['channels_per_block']} channels a block, "
+          f"{info[f'steps_per_{staged}']} steps a {staged}, "
+          f"{info['shared_bytes']} shared bytes a block; at most "
+          f"{info['blocks_per_sm']} blocks ({warps} warps) resident an SM; "
+          f"the grid has {n_blocks} blocks ({n_blocks / n_sms:.2f} an SM)",
+          flush=True)
+    return dict(info, warps_per_sm=warps)
 
 
 def kernel_phase(gen):
@@ -350,17 +438,8 @@ def kernel_phase(gen):
         plain_ms = cuda_ms(lambda: selective_scan_ref(
             d["u"], d["delta"], d["A"], d["B"], d["C"], d["Dskip"], d["z"],
             d["bias"], True), reps=1, groups=3)
-    info = selective_scan_fwd_launch_info(N, L, bf)
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    n_blocks = -(-D // info["channels_per_block"]) * B_
-    warps = info["blocks_per_sm"] * info["threads"] // 32
-    print(f"K1 flagship instance: {info['registers']} registers a thread, "
-          f"{info['spill_bytes']} spill bytes, {info['threads']} threads a "
-          f"block, {info['steps_per_chunk']} steps a chunk, "
-          f"{info['shared_bytes']} shared bytes a block; at most "
-          f"{info['blocks_per_sm']} blocks ({warps} warps) resident an SM; "
-          f"the grid has {n_blocks} blocks ({n_blocks / n_sms:.2f} an SM)",
-          flush=True)
+    print_instance("K1", selective_scan_fwd_launch_info(N, L, bf), "chunk",
+                   B_, D)
     # least time for the same work: each input read once, each output
     # written once (y in bf16, x_last in fp32; no carries on the main path)
     item = d["u"].element_size()
@@ -382,14 +461,37 @@ def kernel_phase(gen):
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=main_err)
 
 
-def check_bwd_case(name, gen, batch, L, D, N, dtype, fused, big_dt=False):
+def strided_like_the_model(d, R=49):
+    """``d`` with z a slice of an xz-like (batch, L, 2D + 1) tensor and B, C
+    slices of an x_dbl-like (batch, L, R + 2N) one at offset R: with R odd
+    the rows of all three are only 2-byte aligned in bf16 (4 in fp32), so
+    the narrow copies of the kernels' staging run."""
+    import torch
+    batch, L, D = d["z"].shape
+    N = d["B"].shape[2]
+    x_dbl = torch.zeros((batch, L, R + 2 * N), dtype=d["B"].dtype,
+                        device=d["B"].device)
+    x_dbl[..., R:R + N], x_dbl[..., R + N:] = d["B"], d["C"]
+    xz = torch.zeros((batch, L, 2 * D + 1), dtype=d["z"].dtype,
+                     device=d["z"].device)
+    xz[..., D + 1:] = d["z"]
+    return dict(d, B=x_dbl[..., R:R + N], C=x_dbl[..., R + N:],
+                z=xz[..., D + 1:])
+
+
+def check_bwd_case(name, gen, batch, L, D, N, dtype, fused, big_dt=False,
+                   long_memory=False, strided=False, tol_fp32=TOL_BWD):
     """K2 against selective_scan_bwd_ref on every output, from the chunk
-    starts K1 wrote, with a final-state cotangent; two launches bit-equal."""
+    starts K1 wrote, with a final-state cotangent, within ``tol_fp32`` of
+    max |ref| (after one bf16 ulp on bf16 outputs); two launches
+    bit-equal.  Prints each output's max abs error and the worst excess."""
     import torch
     from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
                                                selective_scan_fwd_cuda)
     from zigma_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
-    d = scan_inputs(gen, batch, L, D, N, dtype, big_dt)
+    d = scan_inputs(gen, batch, L, D, N, dtype, big_dt, long_memory)
+    if strided:
+        d = strided_like_the_model(d)
     d["gy"] = torch.randn(batch, L, D, generator=gen, device="cuda").to(dtype)
     d["g_last"] = torch.randn(batch, N, D, generator=gen, device="cuda")
     Dk, zk = (d["Dskip"], d["z"]) if fused else (None, None)
@@ -403,7 +505,7 @@ def check_bwd_case(name, gen, batch, L, D, N, dtype, fused, big_dt=False):
         torch.cuda.synchronize()
         ref = selective_scan_bwd_ref(*args)
         torch.cuda.synchronize()
-    errs = {}
+    errs, worst = {}, (0.0, "", 0.0)
     for what, g, a, r in zip(BWD_NAMES, got, again, ref):
         if g.shape != r.shape or g.dtype != r.dtype:
             fail(f"{name}: {what} {tuple(g.shape)} {g.dtype} vs "
@@ -413,22 +515,85 @@ def check_bwd_case(name, gen, batch, L, D, N, dtype, fused, big_dt=False):
                  f"inputs")
         ulp = BF16_ULP if g.dtype == torch.bfloat16 else 0.0
         tol = (TOL_DBIAS_BF16 if what == "dbias" and dtype == torch.bfloat16
-               else TOL_BWD)
+               else tol_fp32)
         err, _ = rel_err(g, r)
         over = excess(g, r, ulp)
         if not (over <= tol):
             fail(f"{name}: {what} max abs err {err}; beyond {ulp:g} x |ref| "
                  f"by {over:.3e} of max |ref| > {tol}")
         errs[what] = err
+        worst = max(worst, (over / tol, what, over))
     print(f"{name:34s} bit-equal repeat; max abs err "
-          + " ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+          + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; worst {worst[1]} {worst[2]:.2e} of max |ref| "
+          f"({worst[0]:.2f} of its limit)", flush=True)
     return d, carries, errs
 
 
-def kernel_bwd_phase(gen):
-    """K2 against its plain version; times at the training path's shape."""
+def truth_bwd_case(name, gen, batch, L, D, N, dtype, long_memory=False):
+    """K2 and the plain fp32 version against the float64 adjoint, fused
+    gate, no final-state cotangent (as the training path calls it), on
+    every output; K2's error may be TOL_TRUTH_MULT times the plain
+    version's (at least FP32_EPS), plus one bf16 ulp per element on bf16
+    outputs.  K2 starts from K1's chunk starts, the plain version from the
+    plain forward's, the truth from its own float64 ones.  A bf16 dbias sums
+    ddelta after its rounding to bf16, so its truth is the sum of the true
+    ddelta rounded to bf16, and the limit TOL_DBIAS_BF16 of max |truth|, as
+    against the plain version (single roundings may flip)."""
     import torch
-    from zigma_tpu_torch.ops.scan_cuda import selective_scan_bwd_cuda
+    from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+                                               selective_scan_fwd_cuda)
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+    d = scan_inputs(gen, batch, L, D, N, dtype, long_memory=long_memory)
+    d["gy"] = torch.randn(batch, L, D, generator=gen, device="cuda").to(dtype)
+    f32 = {k: v.float() for k, v in d.items()}  # the same values in fp32
+    names = ("u", "delta", "bias", "A", "B", "C")
+    with torch.no_grad():
+        _, carries, _ = selective_scan_fwd_cuda(
+            d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"], d["Dskip"],
+            d["z"])
+        got = selective_scan_bwd_cuda(*(d[k] for k in names), carries,
+                                      d["gy"], None, d["Dskip"], d["z"])
+        _, carries_p, _ = selective_scan_ref(
+            f32["u"], f32["delta"], f32["A"], f32["B"], f32["C"],
+            f32["Dskip"], f32["z"], f32["bias"], True)
+        plain = selective_scan_bwd_ref(*(f32[k] for k in names), carries_p,
+                                       f32["gy"], None, f32["Dskip"],
+                                       f32["z"])
+        truth = truth_bwd_f64(d)
+        torch.cuda.synchronize()
+    parts, worst = [], (0.0, "")
+    for what, k, p, t in zip(BWD_NAMES, got, plain, truth):
+        scale = t.abs().max().item()
+        ulp = BF16_ULP if k.dtype == torch.bfloat16 else 0.0
+        e_k = ((k.double() - t).abs() - ulp * t.abs()).max().item() / scale
+        e_p = (p.double() - t).abs().max().item() / scale
+        if what == "dbias" and dtype == torch.bfloat16:
+            t = truth[1].to(torch.bfloat16).double().sum((0, 1))
+            e_k = (k.double() - t).abs().max().item() / t.abs().max().item()
+            parts.append(f"{what} K2 {e_k:.2e} (limit {TOL_DBIAS_BF16})")
+            if not e_k <= TOL_DBIAS_BF16:
+                fail(f"{name}: bf16 dbias {e_k:.3e} of max |truth| > "
+                     f"{TOL_DBIAS_BF16}")
+            continue
+        ratio = e_k / max(e_p, FP32_EPS)
+        worst = max(worst, (ratio, what))
+        parts.append(f"{what} {e_k:.2e}/{e_p:.2e} ({ratio:.2f}x)")
+        if not ratio <= TOL_TRUTH_MULT:
+            fail(f"{name}: {what} K2's error against the f64 truth is "
+                 f"{ratio:.2f}x the plain fp32 version's > {TOL_TRUTH_MULT}")
+    print(f"{name:34s} vs f64, K2/plain of max |truth|: " + "; ".join(parts)
+          + f"; worst {worst[1]} {worst[0]:.2f}x", flush=True)
+    return worst[0]
+
+
+def kernel_bwd_phase(gen):
+    """K2 against its plain version and a float64 truth; times at the
+    training path's shape."""
+    import torch
+    from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+                                               selective_scan_bwd_launch_info)
     from zigma_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
     f, bf = torch.float32, torch.bfloat16
     fs = FLAGSHIP
@@ -441,16 +606,49 @@ def kernel_bwd_phase(gen):
          dict(batch=2, L=1000, D=1536, N=16), bf, True),
         ("N=64 fp32 fused", dict(batch=2, L=1000, D=256, N=64), f, True),
         ("N=256 fp32 unfused", dict(batch=2, L=300, D=256, N=256), f, False),
+        # long memory, and the edges of K2's tiling: L below, at and just
+        # past a 128-step chunk (and a single step), D not a multiple of a
+        # block's channels, d_state 1 and 17; z, B and C strided as the
+        # model passes them, with rows only 2-byte aligned in bf16
+        ("flagship long-memory bf16 fused", fs, bf, True),
+        ("long-memory L=1024 D=64 fp32 fused", dict(batch=2, L=1024, D=64,
+                                                    N=16), f, True),
+        ("long-memory L=1024 D=64 fp32 unfused", dict(batch=2, L=1024, D=64,
+                                                      N=16), f, False),
+        ("L=1 D=70 N=1 fp32 fused", dict(batch=3, L=1, D=70, N=1), f, True),
+        ("L=127 D=100 N=16 bf16 fused", dict(batch=2, L=127, D=100, N=16),
+         bf, True),
+        ("L=128 D=100 N=17 fp32 unfused", dict(batch=2, L=128, D=100, N=17),
+         f, False),
+        ("L=129 D=100 N=17 bf16 fused", dict(batch=2, L=129, D=100, N=17),
+         bf, True),
+        ("strided L=300 D=96 bf16 fused", dict(batch=2, L=300, D=96, N=16),
+         bf, True),
+        ("strided L=300 D=96 fp32 fused", dict(batch=2, L=300, D=96, N=16),
+         f, True),
     ]
     main = None
     for name, shp, dtype, fused in cases:
-        d, carries, errs = check_bwd_case(name, gen, **shp, dtype=dtype,
-                                          fused=fused,
-                                          big_dt="dt>20" in name)
+        long = "long-memory" in name
+        d, carries, errs = check_bwd_case(
+            name, gen, **shp, dtype=dtype, fused=fused, big_dt="dt>20" in name,
+            long_memory=long, strided="strided" in name,
+            tol_fp32=TOL_BWD_LONG if long else TOL_BWD)
         if "main path" in name:
             main = (d, carries, max(errs.values()))
+    truth_worst = max(
+        truth_bwd_case(f"f64 truth: {kind}flagship {tag} #{i}", gen, **fs,
+                       dtype=dtype, long_memory=bool(kind))
+        for kind in ("", "long-memory ")
+        for tag, dtype in (("fp32", f), ("bf16", bf))
+        for i in range(TRUTH_BWD_DRAWS))
+    print(f"f64-truth gate: K2's error at most {truth_worst:.2f}x the plain "
+          f"fp32 version's over {4 * TRUTH_BWD_DRAWS} draws (limit "
+          f"{TOL_TRUTH_MULT})", flush=True)
     d, carries, main_err = main
     B_, L, D, N = fs["batch"], fs["L"], fs["D"], fs["N"]
+    info = print_instance("K2", selective_scan_bwd_launch_info(N, L, bf),
+                          "tile", B_, D)
     # the main path's call: no final-state cotangent
     args = (d["u"], d["delta"], d["bias"], d["A"], d["B"], d["C"], carries,
             d["gy"], None, d["Dskip"], d["z"])
@@ -478,7 +676,7 @@ def kernel_bwd_phase(gen):
           f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} ({how})",
           flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=main_err)
+                bound_by=bound_by, max_abs_err=main_err, info=info)
 
 
 def main_path_phase(gen):

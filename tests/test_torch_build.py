@@ -46,3 +46,20 @@ def test_forward_kernel_key_covers_its_header():
         "selective_scan_fwd.cu", "scan_common.cuh"]
     for src in _build.SOURCES:
         assert os.path.dirname(_build._lib_path(src)) == _build.BUILD_DIR
+
+
+def test_backward_kernel_key_covers_the_shared_header(tmp_path, monkeypatch):
+    """K2 includes scan_common.cuh too: an edit to the header alone gives
+    both kernels a new library."""
+    assert _build._sources_of("selective_scan_bwd.cu") == [
+        "selective_scan_bwd.cu", "scan_common.cuh"]
+    for name in ("selective_scan_fwd.cu", "selective_scan_bwd.cu",
+                 "scan_common.cuh"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            (tmp_path / name).write_text(f.read())
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    keys = {src: _build._lib_path(src) for src in _build.SOURCES}
+    with open(tmp_path / "scan_common.cuh", "a") as f:
+        f.write("// edit\n")
+    for src in _build.SOURCES:
+        assert _build._lib_path(src) != keys[src], src

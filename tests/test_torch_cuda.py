@@ -7,12 +7,15 @@ every gradient.  Tolerance per element: |got - ref| <= ulp * |ref| + floor *
 max |ref|, where ulp is 2^-7 for bf16 outputs (one bf16 rounding of the same
 fp32 value may land a bf16 ulp away) and 0 for fp32 ones, and the floor
 covers summation order and exp/log1p ulps in fp32: 1e-4 for K1, 1e-5 for K2
-(its first run on the H100 measured at most 1.3e-6).  K2's dbias in a bf16
-run sums ddelta after its rounding to bf16, where single roundings may flip:
-floor 1e-3 (measured at most 1.4e-4).
+(its first run on the H100 measured at most 1.3e-6), 3e-5 for K2 at long
+memory (see TOL_BWD_LONG).  K2's dbias in a bf16 run sums ddelta after its
+rounding to bf16, where single roundings may flip: floor 1e-3 (measured at
+most 1.4e-4).  Two K2 launches are bit-equal.
 """
 
 import math
+import os
+import sys
 
 import pytest
 import torch
@@ -24,6 +27,7 @@ from zigma_tpu_torch.ops.selective_scan import (selective_scan,
                                                 selective_scan_ref)
 
 pytestmark = pytest.mark.cuda
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 @pytest.fixture
@@ -58,6 +62,14 @@ def _long_memory_inputs(gen, batch, L, D, N, dtype):
 TOL_FP32 = 1e-4
 TOL_BWD = 1e-5
 TOL_DBIAS_BF16 = 1e-3
+# K2 vs plain at long memory, as chip_smoke.TOL_BWD_LONG: both carry each
+# decay's rounding over about a thousand steps.  At this file's size
+# (2, 1024, 64, 16), chip_smoke's fp32 cases read 8.1e-6 (fused) and 9.0e-6
+# (unfused) of max |ref| on dx0, the flagship bf16 one 9.5e-6 (H100 80GB
+# HBM3, 700 W); the plain version's own dx0 error against the float64
+# adjoint reached 7.5e-6 of max |truth| there, K2's 3.2e-6
+TOL_BWD_LONG = 3e-5
+TOL_TRUTH_MULT = 4.0
 BF16_ULP = 2.0 ** -7
 BWD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dbias", "dx0", "dz", "dD")
 
@@ -193,8 +205,13 @@ def test_tiny_model_kernel_matches_plain_scan(gen):
     assert _rel(out, ref) <= TOL_FP32
 
 
-def _bwd_case(gen, batch, L, D, N, dtype, fused, with_g_last):
-    d = _inputs(gen, batch, L, D, N, dtype)
+def _bwd_case(gen, batch, L, D, N, dtype, fused, with_g_last,
+              long_memory=False, strided=False):
+    d = (_long_memory_inputs if long_memory else _inputs)(gen, batch, L, D, N,
+                                                          dtype)
+    if strided:
+        import chip_smoke
+        d = chip_smoke.strided_like_the_model(d)
     d["gy"] = torch.randn(batch, L, D, generator=gen, device="cuda").to(dtype)
     d["g_last"] = torch.randn(batch, N, D, generator=gen, device="cuda")
     Dk, zk = (d["Dskip"], d["z"]) if fused else (None, None)
@@ -214,19 +231,95 @@ def _bwd_case(gen, batch, L, D, N, dtype, fused, with_g_last):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("with_g_last", [True, False])
-@pytest.mark.parametrize("L,D,N", [(300, 96, 16), (129, 64, 64), (40, 32, 256),
-                                   (7, 50, 5)])
+@pytest.mark.parametrize("L,D,N", [
+    (300, 96, 16), (129, 64, 64), (40, 32, 256), (7, 50, 5),
+    # the edges of K2's tiling: L below, at and just past a 128-step chunk
+    # (and a single step), D not a multiple of a block's channels, d_state
+    # 1 and 17 (4 lanes of 4 states padded from 1; 8 lanes padded from 17)
+    (1, 70, 1), (127, 100, 16), (128, 100, 17), (129, 100, 17)])
 def test_backward_kernel_matches_plain_version(gen, dtype, fused, with_g_last,
                                                L, D, N):
-    got, again, ref = _bwd_case(gen, 2, L, D, N, dtype, fused, with_g_last)
+    _check_bwd(dtype, fused, *_bwd_case(gen, 2, L, D, N, dtype, fused,
+                                        with_g_last))
+
+
+def _check_bwd(dtype, fused, got, again, ref, tol_fp32=TOL_BWD):
     assert len(got) == len(ref) == (9 if fused else 7)
     for name, g, a, r in zip(BWD_NAMES, got, again, ref):
         assert g.shape == r.shape and g.dtype == r.dtype, name
         assert torch.equal(g, a), name  # no atomics: bit-equal repeats
         ulp = BF16_ULP if g.dtype == torch.bfloat16 else 0.0
         tol = (TOL_DBIAS_BF16 if name == "dbias" and dtype == torch.bfloat16
-               else TOL_BWD)
+               else tol_fp32)
         assert _rel(g, r, ulp) <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [True, False])
+def test_backward_kernel_matches_plain_version_long_memory(gen, dtype, fused):
+    """Decays near 0.999 over L = 1024: K2 recomputes each state from K1's
+    chunk starts with the same fast exponential, and the adjoint carries
+    every decay's rounding over about a thousand steps -- the plain
+    version's as much as K2's.  So against each other the floor is
+    TOL_BWD_LONG; K2 against the float64 adjoint is held in chip_smoke.py
+    (and in test_backward_kernel_long_memory_against_float64)."""
+    got, again, ref = _bwd_case(gen, 2, 1024, 64, 16, dtype, fused, True,
+                                long_memory=True)
+    _check_bwd(dtype, fused, got, again, ref, TOL_BWD_LONG)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_long_memory_against_float64(gen, dtype):
+    """K2 and the plain fp32 version against chip_smoke.truth_bwd_f64 (the
+    fused adjoint in float64) at long memory: K2's error at most
+    TOL_TRUTH_MULT times the plain version's on every output (bf16 outputs
+    after one bf16 ulp of |truth|; bf16 dbias, which sums the rounded
+    ddelta, is left to the test above)."""
+    import chip_smoke
+    d = _long_memory_inputs(gen, 2, 1024, 64, 16, dtype)
+    d["gy"] = torch.randn(2, 1024, 64, generator=gen, device="cuda").to(dtype)
+    f32 = {k: v.float() for k, v in d.items()}
+    names = ("u", "delta", "bias", "A", "B", "C")
+    with torch.no_grad():
+        _, carries, _ = scan_cuda.selective_scan_fwd_cuda(
+            d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"], d["Dskip"],
+            d["z"])
+        got = scan_cuda.selective_scan_bwd_cuda(
+            *(d[k] for k in names), carries, d["gy"], None, d["Dskip"], d["z"])
+        _, carries_p, _ = selective_scan_ref(
+            f32["u"], f32["delta"], f32["A"], f32["B"], f32["C"],
+            f32["Dskip"], f32["z"], f32["bias"], True)
+        plain = selective_scan_bwd_ref(*(f32[k] for k in names), carries_p,
+                                       f32["gy"], None, f32["Dskip"], f32["z"])
+        truth = chip_smoke.truth_bwd_f64(
+            {k: d[k] for k in ("u", "delta", "A", "B", "C", "bias", "Dskip",
+                               "z", "gy")})
+    for name, k, p, t in zip(BWD_NAMES, got, plain, truth):
+        if name == "dbias" and dtype == torch.bfloat16:
+            continue
+        scale = t.abs().max().item()
+        ulp = BF16_ULP if k.dtype == torch.bfloat16 else 0.0
+        e_k = ((k.double() - t).abs() - ulp * t.abs()).max().item() / scale
+        e_p = (p.double() - t).abs().max().item() / scale
+        assert e_k <= TOL_TRUTH_MULT * max(e_p, 2.0 ** -23), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_strided_inputs(gen, dtype):
+    """z, B and C as the model passes them (slices of xz and x_dbl), with
+    rows only 2-byte aligned in bf16."""
+    _check_bwd(dtype, True, *_bwd_case(gen, 2, 300, 96, 16, dtype, True, True,
+                                       strided=True))
+
+
+def test_backward_flagship_instance_launch_info(gen):
+    """The flagship's K2 instance (d_state 16, L 1024, bf16) keeps at most
+    128 registers a thread, spills nothing and keeps at least 12 warps
+    resident an SM."""
+    info = scan_cuda.selective_scan_bwd_launch_info(16, 1024, torch.bfloat16)
+    assert info["registers"] <= 128 and info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] * info["threads"] // 32 >= 12
+    assert 128 % info["steps_per_tile"] == 0
 
 
 def test_cuda_tensors_under_autograd_run_both_kernels(gen):

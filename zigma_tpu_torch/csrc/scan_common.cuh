@@ -1,7 +1,7 @@
-// Device helpers of the selective-scan kernels: the input types, the decay's
+// Helpers of the selective-scan kernels: the input types, the decay's
 // exponential on the special-function unit, the per-channel softplus and
-// gate, and the asynchronous staging of a (tokens x channels) tile of a
-// strided tensor into shared memory.
+// gate, the asynchronous staging of a (tokens x channels) tile of a strided
+// tensor into shared memory, and (host side) the width of its copies.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +50,24 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
 __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
                                             pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+}
+
+// 4 consecutive values to fp32, and 4 fp32 values stored, as 16-byte (fp32)
+// or 8-byte (bf16) accesses: p is aligned to that
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(w.x << 16); v[1] = __uint_as_float(w.x & 0xffff0000u);
+  v[2] = __uint_as_float(w.y << 16); v[3] = __uint_as_float(w.y & 0xffff0000u);
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
 }
 
 // 2^v as one MUFU.EX2 instruction (ex2.approx: at most 2 ulp; results below
@@ -112,6 +130,16 @@ __device__ __forceinline__ void stage_tile(E* s, const E* g, long long row, int 
     else
       set_zero(dst);
   }
+}
+
+// Host side: elements a copy for rows starting at p, `row` elements apart:
+// the widest of 16, 8, 4 bytes (or one element) both are aligned to, at
+// most `cols`
+inline int vec_elems(const void* p, long long row, int elt, int cols) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(row * elt);
+  int bytes = 16;
+  while (bytes > elt && a % bytes != 0) bytes >>= 1;
+  return bytes / elt < cols ? bytes / elt : cols;
 }
 
 }  // namespace zt

@@ -333,15 +333,6 @@ int pick(int N, int L, int dtype, Config* c) {
                                    (int)kSmemBudget);
 }
 
-// elements a copy for rows starting at p, `row` elements apart: the widest
-// of 16, 8, 4 bytes (or one element) both are aligned to, at most `cols`
-int vec_elems(const void* p, long long row, int elt, int cols) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(row * elt);
-  int bytes = 16;
-  while (bytes > elt && a % bytes != 0) bytes >>= 1;
-  return bytes / elt < cols ? bytes / elt : cols;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (u, delta, B, C, z and out share it).

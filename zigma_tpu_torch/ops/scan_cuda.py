@@ -25,7 +25,8 @@ import torch
 from zigma_tpu_torch.ops import _build
 
 __all__ = ["selective_scan_fwd_cuda", "selective_scan_bwd_cuda",
-           "selective_scan_fwd_launch_info", "CARRY_EVERY", "MAX_D_STATE"]
+           "selective_scan_fwd_launch_info", "selective_scan_bwd_launch_info",
+           "CARRY_EVERY", "MAX_D_STATE"]
 
 SOURCE = "selective_scan_fwd.cu"
 SOURCE_BWD = "selective_scan_bwd.cu"
@@ -47,6 +48,21 @@ def _kernel():
     return _fn
 
 
+def _launch_info(source: str, symbol: str, steps_key: str, N: int, L: int,
+                 dtype) -> dict:
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    keys = ("registers", "spill_bytes", "blocks_per_sm", "threads",
+            "channels_per_block", steps_key, "shared_bytes")
+    info = (ctypes.c_int * len(keys))()
+    err = fn(N, L, _DTYPES[dtype], ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: CUDA error {err} at N={N}, "
+                           f"L={L}, {dtype}")
+    return dict(zip(keys, info))
+
+
 def selective_scan_fwd_launch_info(N: int, L: int, dtype) -> dict:
     """The forward kernel's launch shape and occupancy for d_state ``N``,
     length ``L`` and ``dtype`` on the current card: registers and spill
@@ -54,17 +70,16 @@ def selective_scan_fwd_launch_info(N: int, L: int, dtype) -> dict:
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads and
     channels a block, steps staged a chunk and dynamic shared bytes a block.
     Launches nothing."""
-    fn = _build.load(SOURCE).zt_selective_scan_fwd_info
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    keys = ("registers", "spill_bytes", "blocks_per_sm", "threads",
-            "channels_per_block", "steps_per_chunk", "shared_bytes")
-    info = (ctypes.c_int * len(keys))()
-    err = fn(N, L, _DTYPES[dtype], ctypes.addressof(info))
-    if err != 0:
-        raise RuntimeError(f"selective_scan_fwd launch info failed: CUDA error "
-                           f"{err} at N={N}, L={L}, {dtype}")
-    return dict(zip(keys, info))
+    return _launch_info(SOURCE, "zt_selective_scan_fwd_info",
+                        "steps_per_chunk", N, L, dtype)
+
+
+def selective_scan_bwd_launch_info(N: int, L: int, dtype) -> dict:
+    """The backward kernel's launch shape and occupancy, with the keys of
+    ``selective_scan_fwd_launch_info`` (``steps_per_tile`` in place of
+    ``steps_per_chunk``: the steps staged a tile).  Launches nothing."""
+    return _launch_info(SOURCE_BWD, "zt_selective_scan_bwd_info",
+                        "steps_per_tile", N, L, dtype)
 
 
 def _bwd_kernel():
@@ -254,9 +269,11 @@ def selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C, carries, gy,
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: CUDA "
                            f"error {err} at shape {(batch, L, d, N)} {dtype}")
     selective_scan_bwd_cuda.launches += 1
-    # the deterministic partial sums of scan_core_bwd_pallas, as torch.sum
+    # the deterministic partial sums of scan_core_bwd_pallas, as torch.sum;
+    # dbias sums the rounded ddelta in fp32 without an fp32 copy of it
     grads = (du, ddelta, dAp.sum(0).t().contiguous(), dBp.sum(1).to(B.dtype),
-             dCp.sum(1).to(C.dtype), ddelta.float().sum((0, 1)), dx0)
+             dCp.sum(1).to(C.dtype), ddelta.sum((0, 1), dtype=torch.float32),
+             dx0)
     if z is None:
         return grads
     return (*grads, dz, dDp.sum(0))
