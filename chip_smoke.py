@@ -27,14 +27,20 @@ Phases, each of which fails loudly (non-zero exit, no result line):
                  K2's time at the training path's shape beside the plain
                  version's and the bound; its registers and resident blocks
                  an SM;
-5. sample     -- the serving path through its entry point: the flagship
+5. video kernels -- K1 and K2 at the video ZigMa's scan shapes, (1024, 16,
+                 1536, 16) for a temporal layer and (64, 256, 1536, 16) for
+                 a spatial one at batch 4, fp32 and bf16, fused, z, B and C
+                 strided as the model passes them, against their plain
+                 versions (K2 bit-equal over two launches); their bf16 times
+                 at the shapes the video paths give them beside the bound;
+6. sample     -- the serving path through its entry point: the flagship
                  ``zigzag8_b1_pe2`` (bf16, random weights from a seed, saved
                  as a reference-format ``.pt``) sampled by
                  ``cli.sample.main``, 2 batches of 16 by 50-step Euler; K1
                  must launch exactly 2 x 49 x 24 times and the plain scan
                  never; then one flagship forward through the kernel against
                  the same forward through the plain scan;
-6. train      -- the training path through its entry point:
+7. train      -- the training path through its entry point:
                  ``cli.train.main`` with ``model=zigzag8_b1_pe2
                  data=synthetic data.batch_size=16`` (bf16, remat,
                  drop-path 0.1, AdamW + clip + EMA), 8 steps; every loss
@@ -42,13 +48,37 @@ Phases, each of which fails loudly (non-zero exit, no result line):
                  the plain scan and plain backward never; the checkpoint's
                  EMA loads with strict=True into a fresh flagship model
                  through ``cli.sample.load_state_dict``;
-7. grad check -- a flagship-width ZigMa (embed 768, 1024 tokens, zigzagN8)
+8. grad check -- a flagship-width ZigMa (embed 768, 1024 tokens, zigzagN8)
                  at depth 2, fp32, batch 2, weights perturbed so every
                  adaLN gate is open: loss and gradients through K1/K2
                  against the same through the plain versions;
-8. profile    -- the device time of one flagship forward and of one
-                 training step, by kind (torch.profiler).
+9. dopri5     -- the flagship sampled by ``cli.sample`` at the repo's
+                 default ``ode`` config (dopri5, 250 save points, atol 1e-6,
+                 rtol 1e-3), batch 4: model calls, accepted and rejected
+                 steps; K1 exactly 24 launches a model call;
+10. SDE       -- the default ``sde`` config (Euler, 250 steps, sigma
+                 diffusion, Mean last step 0.04), batch 16: K1 exactly
+                 24 x 250 launches (one model call a drift evaluation);
+11. likelihood -- ``likelihood=true`` by Euler, 10 steps, batch 4: K1
+                 48 x 9 and K2 24 x 9 launches (forward, remat recompute and
+                 the vector-Jacobian product of each drift evaluation);
+                 logp finite;
+12. video train -- ``cli.train`` on the video ZigMa ``3d_zigzag8sst_b2``
+                 (16 frames, 101 classes, label drop 0.1), synthetic data,
+                 batch 4, 8 steps: K1 48 and K2 24 launches a step; the
+                 checkpoint loads into the sampler's model (strict);
+13. video sample -- ``cli.sample`` from that checkpoint (perturbed so the
+                 gates are open) with classifier-free guidance 4, 50-step
+                 Euler, 2 batches of 4: K1 24 x 49 launches a batch, a
+                 ``.npy`` a batch and a ``.gif`` a video;
+14. video grad check -- a flagship-width depth-3 (s, s, t) fp32 video model:
+                 gradients through K1/K2 against the plain versions';
+15. profile   -- the device time of one flagship forward, one flagship
+                 training step, one video training step and one guided
+                 video forward, by kind (torch.profiler).
 
+Every count is set to 0 just before its path runs and read just after; the
+plain versions must run 0 times on every path.
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the nvidia-smi line comes just before.
 """
@@ -128,6 +158,18 @@ TOL_GRAD = 1e-4
 FLAGSHIP = dict(batch=16, L=1024, D=1536, N=16)
 STEPS, DEPTH, N_BATCHES, BATCH = 50, 24, 2, 16
 TRAIN_STEPS = 8
+DOPRI5_BATCH = LIK_BATCH = 4
+# the video ZigMa 3d_zigzag8sst_b2 as UCF101 trains it (16 frames, 101
+# classes, CFG label drop 0.1), at batch 4 (UCF101's is 20)
+VIDEO_ARGS = ["model=3d_zigzag8sst_b2", "data=synthetic",
+              "data.video_frames=16", "data.num_classes=101",
+              "model.params.class_dropout_prob=0.1"]
+VIDEO_BATCH = 4
+# the scans of its layers at batch 4: a temporal layer scans each token's
+# 16 frames (256 tokens x 4 videos), a spatial one each frame's 256 tokens
+# (16 frames x 4 videos)
+VIDEO_SHAPES = {"temporal": dict(batch=1024, L=16, D=1536, N=16),
+                "spatial": dict(batch=64, L=256, D=1536, N=16)}
 
 
 def fail(msg):
@@ -204,11 +246,13 @@ def excess(got, ref, ulp):
 
 
 def check_kernel_case(name, gen, batch, L, D, N, dtype, fused, with_x0,
-                      big_dt=False, long_memory=False):
+                      big_dt=False, long_memory=False, strided=False):
     import torch
     from zigma_tpu_torch.ops.scan_cuda import selective_scan_fwd_cuda
     from zigma_tpu_torch.ops.selective_scan import selective_scan_ref
     d = scan_inputs(gen, batch, L, D, N, dtype, big_dt, long_memory)
+    if strided:
+        d = strided_like_the_model(d)
     Dk, zk = (d["Dskip"], d["z"]) if fused else (None, None)
     x0 = d["x0"] if with_x0 else None
     with torch.inference_mode():
@@ -255,6 +299,37 @@ def least_time(n_bytes, flops, transc):
            f"transcendentals on {n_sms} SMs x {SFU_OPS_PER_CLK_PER_SM}/clk at "
            f"{clk_mhz:.0f} MHz -> {sfu_ms:.4f} ms")
     return bound_ms, bound_by, how
+
+
+def k1_work(batch, L, D, N, item, carries=False):
+    """(bytes, fp32 flops, transcendentals) of K1's function, fused gate:
+    each input read once (u, delta, z; B, C; A, bias, D), each output
+    written once (y; x_last in fp32; the chunk starts with ``carries``).
+    Operations: the JAX kernel's cost estimate of fp32 FMA work, and on the
+    special-function units one exp per state plus softplus's exp and log1p
+    and the gate's exp per channel."""
+    n_bytes = (4 * batch * L * D * item          # u, delta, z in; y out
+               + 2 * batch * L * N * item        # B, C
+               + D * N * 4 + 2 * D * 4           # A, bias, D
+               + batch * N * D * 4)              # x_last
+    if carries:
+        n_bytes += batch * -(-L // 128) * N * D * 4
+    return n_bytes, 9 * batch * L * D * N, batch * L * D * N + 3 * batch * L * D
+
+
+def k2_work(batch, L, D, N, item):
+    """(bytes, fp32 flops, transcendentals) of K2's function as the training
+    path calls it: each input read once (u, delta, z, gy; B, C; the chunk
+    starts; A, bias, D), each output written once (du, ddelta, dz; dB, dC;
+    dA, dbias, dD; dx0).  Operations: the JAX kernel's cost estimate (25 B L
+    D N), and one exp per state and step plus softplus's exp and log1p, its
+    sigmoid and the gate's sigmoid per channel and step."""
+    n_bytes = (7 * batch * L * D * item          # u, delta, z, gy in; 3 out
+               + 4 * batch * L * N * item        # B, C in; dB, dC out
+               + batch * -(-L // 128) * N * D * 4  # chunk-start states
+               + 2 * (D * N * 4 + 2 * D * 4)     # A, bias, D in; grads out
+               + batch * N * D * 4)              # dx0
+    return n_bytes, 25 * batch * L * D * N, batch * L * D * N + 4 * batch * L * D
 
 
 def truth_f64(d, device="cuda"):
@@ -440,19 +515,9 @@ def kernel_phase(gen):
             d["bias"], True), reps=1, groups=3)
     print_instance("K1", selective_scan_fwd_launch_info(N, L, bf), "chunk",
                    B_, D)
-    # least time for the same work: each input read once, each output
-    # written once (y in bf16, x_last in fp32; no carries on the main path)
-    item = d["u"].element_size()
-    n_bytes = (4 * B_ * L * D * item        # u, delta, z in; y out
-               + 2 * B_ * L * N * item      # B, C
-               + D * N * 4 + 2 * D * 4      # A, bias, D
-               + B_ * N * D * 4)            # x_last
-    # operations, each type over its own peak: fp32 FMAs (the JAX kernel's
-    # cost estimate) and transcendentals on the special-function units (one
-    # exp per state; softplus's exp and log1p, the gate's exp per channel)
-    flops = 9 * B_ * L * D * N
-    transc = B_ * L * D * N + 3 * B_ * L * D
-    bound_ms, bound_by, how = least_time(n_bytes, flops, transc)
+    # least time for the same work (no carries on the sampling path)
+    bound_ms, bound_by, how = least_time(
+        *k1_work(B_, L, D, N, d["u"].element_size()))
     print(f"K1 at {tuple(fs.values())} bf16 fused: {ms:.4f} ms as sampling "
           f"calls it, {ms_carries:.4f} ms with the chunk starts as training "
           f"calls it; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
@@ -656,22 +721,8 @@ def kernel_bwd_phase(gen):
         ms = cuda_ms(lambda: selective_scan_bwd_cuda(*args), reps=10)
         plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(*args), reps=1,
                            groups=3)
-    # least time for the function: each input read once (u, delta, z, gy;
-    # B, C; the chunk starts; A, bias, D), each output written once (du,
-    # ddelta, dz; dB, dC; dA, dbias, dD; dx0)
-    item = d["u"].element_size()
-    n_chunks = carries.shape[1]
-    n_bytes = (7 * B_ * L * D * item            # u, delta, z, gy in; 3 out
-               + 4 * B_ * L * N * item          # B, C in; dB, dC out
-               + B_ * n_chunks * N * D * 4      # chunk-start states
-               + 2 * (D * N * 4 + 2 * D * 4)    # A, bias, D in; grads out
-               + B_ * N * D * 4)                # dx0
-    # fp32 work as the JAX kernel's cost estimate counts it (25 B L D N);
-    # transcendentals: one exp per state and step (the decay), softplus's
-    # exp and log1p, its sigmoid and the gate's sigmoid per channel and step
-    flops = 25 * B_ * L * D * N
-    transc = B_ * L * D * N + 4 * B_ * L * D
-    bound_ms, bound_by, how = least_time(n_bytes, flops, transc)
+    bound_ms, bound_by, how = least_time(
+        *k2_work(B_, L, D, N, d["u"].element_size()))
     print(f"K2 at {tuple(fs.values())} bf16 fused: {ms:.4f} ms; plain "
           f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} ({how})",
           flush=True)
@@ -679,8 +730,10 @@ def kernel_bwd_phase(gen):
                 bound_by=bound_by, max_abs_err=main_err, info=info)
 
 
-def main_path_phase(gen):
-    """The serving entry point at the flagship config; counts K1 launches."""
+def main_path_phase(gen, tmp):
+    """The serving entry point at the flagship config; counts K1 launches.
+    Saves the flagship's random weights as ``{tmp}/flagship.pt``, which the
+    later sampling phases load."""
     import torch
     from zigma_tpu_torch.cli import sample as sample_cli
     from zigma_tpu_torch.models import zigma_flops
@@ -700,21 +753,20 @@ def main_path_phase(gen):
           f"{n_params / 1e6:.1f} M params, dtype {model.dtype}", flush=True)
     del model
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "flagship.pt")
-        torch.save({"ema": sd}, ckpt)
-        scan_cuda.selective_scan_fwd_cuda.launches = 0
-        selective_scan_ref.calls = 0
-        t0 = time.perf_counter()
-        res = sample_cli.main([
-            f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "sample_mode=ODE",
-            "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
-            f"offline_sample_local_bs={BATCH}",
-            f"num_fid_samples={N_BATCHES * BATCH}", f"sample_dir={tmp}"])
-        wall = time.perf_counter() - t0
-        launches = scan_cuda.selective_scan_fwd_cuda.launches
-        plain_calls = selective_scan_ref.calls
-        pngs = [f for f in os.listdir(res["out_dir"]) if f.endswith(".png")]
+    ckpt = os.path.join(tmp, "flagship.pt")
+    torch.save({"ema": sd}, ckpt)
+    scan_cuda.selective_scan_fwd_cuda.launches = 0
+    selective_scan_ref.calls = 0
+    t0 = time.perf_counter()
+    res = sample_cli.main([
+        f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "sample_mode=ODE",
+        "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
+        f"offline_sample_local_bs={BATCH}",
+        f"num_fid_samples={N_BATCHES * BATCH}", f"sample_dir={tmp}"])
+    wall = time.perf_counter() - t0
+    launches = scan_cuda.selective_scan_fwd_cuda.launches
+    plain_calls = selective_scan_ref.calls
+    pngs = [f for f in os.listdir(res["out_dir"]) if f.endswith(".png")]
     want = N_BATCHES * (STEPS - 1) * DEPTH
     print(f"sample CLI: {len(pngs)} PNGs in {wall:.2f} s; batches "
           f"{[round(s, 4) for s in res['batch_seconds']]} s; K1 launches "
@@ -763,7 +815,7 @@ def main_path_phase(gen):
     if not rel <= TOL_FORWARD:
         fail("flagship forward: kernel and plain scan disagree")
     return model, x, t, dict(images_per_s=img_s, forward_ms=fwd_ms,
-                             launches=launches)
+                             launches=launches, ckpt=ckpt)
 
 
 def train_phase(gen):
@@ -778,6 +830,7 @@ def train_phase(gen):
 
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9  # by earlier phases
         scan_cuda.selective_scan_fwd_cuda.launches = 0
         scan_cuda.selective_scan_bwd_cuda.launches = 0
         selective_scan_ref.calls = selective_scan_bwd_ref.calls = 0
@@ -827,26 +880,32 @@ def train_phase(gen):
           f"their median {statistics.median(steady):.4f} s, range "
           f"{min(steady):.4f}-{max(steady):.4f} s; first step "
           f"{1.0 / res['records'][0]['steps_per_sec']:.3f} s); "
-          f"peak device memory {peak_gb:.2f} GB", flush=True)
+          f"peak device memory {peak_gb:.2f} GB, of which {held_gb:.2f} GB "
+          f"held by earlier phases before the run", flush=True)
     return state, dict(steps_per_s=steps_s, images_per_s=steps_s * BATCH,
                        peak_gb=peak_gb, k1=k1, k2=k2)
 
 
-def grad_check_phase(gen):
-    """A flagship-width depth-2 model: loss and every parameter's gradient
-    through K1/K2 against the same through the plain versions."""
+def grad_check_phase(gen, what, x_shape, **model_kw):
+    """A flagship-width model (``model_kw``), weights perturbed so every
+    adaLN gate is open: loss and every parameter's gradient through K1/K2
+    against the same through the plain versions (same generator seed, so
+    the same draws)."""
     import torch
     from zigma_tpu_torch.models import ZigMa
     from zigma_tpu_torch.train import LATENT_SCALE, make_diffusion_loss_fn
     from zigma_tpu_torch.transport import create_transport
 
-    model = ZigMa(in_channels=4, embed_dim=768, depth=2, img_dim=32,
-                  patch_size=1, scan_type="zigzagN8", use_pe=2,
-                  use_checkpoint=True, device="cuda", generator=gen)
+    model = ZigMa(in_channels=4, embed_dim=768, use_pe=2,
+                  use_checkpoint=True, device="cuda", generator=gen,
+                  **model_kw)
     with torch.no_grad():  # off the DiT zero-init, so every gate is open
         for p in model.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
-    x = torch.randn(2, 4, 32, 32, generator=gen, device="cuda")
+    batch = {"x": torch.randn(x_shape, generator=gen, device="cuda")}
+    if model.num_classes > 0:
+        batch["y"] = torch.randint(0, model.num_classes, x_shape[:1],
+                                   generator=gen, device="cuda")
     loss_fn = make_diffusion_loss_fn(model, create_transport(),
                                      latent_scale=LATENT_SCALE)
     out = []
@@ -854,15 +913,15 @@ def grad_check_phase(gen):
         for blk in model.blocks:
             blk.mixer.scan_backend = backend
         model.zero_grad(set_to_none=True)
-        loss = loss_fn({"x": x}, torch.Generator(device="cuda").manual_seed(7))
+        loss = loss_fn(batch, torch.Generator(device="cuda").manual_seed(7))
         loss.backward()
         torch.cuda.synchronize()
         out.append((loss.item(), {n: p.grad.clone()
                                   for n, p in model.named_parameters()}))
     (loss_k, gk), (loss_r, gr) = out
     worst_name, worst = None, abs(loss_k - loss_r) / abs(loss_r)
-    print(f"loss {loss_k:.6f} through K1/K2, {loss_r:.6f} through the plain "
-          f"versions", flush=True)
+    print(f"{what}: loss {loss_k:.6f} through K1/K2, {loss_r:.6f} through "
+          f"the plain versions", flush=True)
     zero = [n for n in gr if gr[n].abs().max().item() == 0]
     if any("mixer" in n for n in zero):
         fail(f"zero mixer gradients {zero}: the scan's gradient was not "
@@ -875,8 +934,269 @@ def grad_check_phase(gen):
           f"|plain|: {worst:.3e} ({worst_name}); tolerance {TOL_GRAD}",
           flush=True)
     if not worst <= TOL_GRAD:
-        fail(f"gradients through K1/K2 and the plain versions disagree: "
-             f"{worst_name} {worst}")
+        fail(f"{what}: gradients through K1/K2 and the plain versions "
+             f"disagree: {worst_name} {worst}")
+    return worst
+
+
+def video_kernel_phase(gen):
+    """K1 and K2 at the video model's shapes (temporal layers: 256 tokens x
+    4 videos of 16 frames; spatial: 16 frames x 4 videos of 256 tokens),
+    fp32 and bf16, fused, with z, B and C strided as the model passes them,
+    against their plain versions; K2 bit-equal over two launches.  Then the
+    bf16 times at the shapes each video path gives them beside the bound."""
+    import torch
+    from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+                                               selective_scan_fwd_cuda)
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+    f, bf = torch.float32, torch.bfloat16
+    for tag, shp in VIDEO_SHAPES.items():
+        for dname, dtype in (("fp32", f), ("bf16", bf)):
+            size = tuple(shp.values())
+            check_kernel_case(f"K1 {tag} {size} {dname}", gen, **shp,
+                              dtype=dtype, fused=True, with_x0=False,
+                              strided=True)
+            check_bwd_case(f"K2 {tag} {size} {dname}", gen, **shp,
+                           dtype=dtype, fused=True, strided=True)
+    times = {}
+    # (kernel, path, shape, chunk starts): training calls K1 with them (for
+    # K2), guided sampling without, at twice the batch (cond and uncond)
+    for kernel, path, tag, scale, carries in (
+            ("K1", "video_train", "temporal", 1, True),
+            ("K1", "video_train", "spatial", 1, True),
+            ("K1", "video_sample", "temporal", 2, False),
+            ("K1", "video_sample", "spatial", 2, False),
+            ("K2", "video_train", "temporal", 1, None),
+            ("K2", "video_train", "spatial", 1, None)):
+        shp = dict(VIDEO_SHAPES[tag], batch=scale * VIDEO_SHAPES[tag]["batch"])
+        B_, L, D, N = shp.values()
+        d = strided_like_the_model(scan_inputs(gen, B_, L, D, N, bf))
+        args = (d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"],
+                d["Dskip"], d["z"])
+        with torch.no_grad():
+            if kernel == "K1":
+                ms = cuda_ms(lambda: selective_scan_fwd_cuda(
+                    *args, return_carries=carries), reps=20)
+                plain_ms = cuda_ms(lambda: selective_scan_ref(
+                    d["u"], d["delta"], d["A"], d["B"], d["C"], d["Dskip"],
+                    d["z"], d["bias"], True), reps=1, groups=3)
+                work = k1_work(B_, L, D, N, 2, carries)
+            else:
+                _, starts, _ = selective_scan_fwd_cuda(*args)
+                gy = torch.randn(B_, L, D, generator=gen,
+                                 device="cuda").to(bf)
+                bargs = (d["u"], d["delta"], d["bias"], d["A"], d["B"],
+                         d["C"], starts, gy, None, d["Dskip"], d["z"])
+                ms = cuda_ms(lambda: selective_scan_bwd_cuda(*bargs), reps=10)
+                plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(*bargs),
+                                   reps=1, groups=3)
+                work = k2_work(B_, L, D, N, 2)
+        bound_ms, bound_by, how = least_time(*work)
+        key = f"{path} {tag} {(B_, L, D, N)}"
+        times.setdefault(kernel, {})[key] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"{kernel} {key} bf16 fused{' with chunk starts' if carries else ''}"
+              f": {ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} "
+              f"ms by {bound_by} ({how}); {ms / bound_ms:.2f}x the bound",
+              flush=True)
+    return times
+
+
+def reset_counts():
+    from zigma_tpu_torch.ops import scan_cuda
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+    scan_cuda.selective_scan_fwd_cuda.launches = 0
+    scan_cuda.selective_scan_bwd_cuda.launches = 0
+    selective_scan_ref.calls = selective_scan_bwd_ref.calls = 0
+
+
+def read_counts():
+    """(K1 launches, K2 launches, plain scan calls, plain backward calls)"""
+    from zigma_tpu_torch.ops import scan_cuda
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+    return (scan_cuda.selective_scan_fwd_cuda.launches,
+            scan_cuda.selective_scan_bwd_cuda.launches,
+            selective_scan_ref.calls, selective_scan_bwd_ref.calls)
+
+
+def run_sample_cli(what, args):
+    """``cli.sample.main(args)`` with the counts set to 0 just before and
+    read just after; fails on non-finite samples or a plain-version call."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sample_cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, p1, p2 = read_counts()
+    calls = sum(res["model_calls"])
+    print(f"{what}: {wall:.2f} s; {len(res['model_calls'])} batch(es) of "
+          f"{[round(v, 3) for v in res['batch_seconds']]} s; model calls "
+          f"{res['model_calls']}; K1 {k1}, K2 {k2} launches; plain scan / "
+          f"plain backward calls {(p1, p2)}", flush=True)
+    if (p1, p2) != (0, 0):
+        fail(f"{what}: the plain versions ran {(p1, p2)} times")
+    if res["n_nonfinite"]:
+        fail(f"{what}: {res['n_nonfinite']} non-finite sample values")
+    return res, calls, k1, k2
+
+
+def sample_dopri5_phase(ckpt, tmp):
+    """The repo's default sampler, dopri5 at the ``ode`` config (250 save
+    points, atol 1e-6, rtol 1e-3), batch 4: K1 launched 24 times a model
+    call."""
+    res, calls, k1, k2 = run_sample_cli("sample CLI dopri5", [
+        f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "sample_mode=ODE",
+        f"offline_sample_local_bs={DOPRI5_BATCH}",
+        f"num_fid_samples={DOPRI5_BATCH}", f"sample_dir={tmp}"])
+    (st,) = res["dopri5"]
+    img_s = DOPRI5_BATCH / res["batch_seconds"][0]
+    print(f"flagship dopri5 (250 save points), batch {DOPRI5_BATCH}: {calls} "
+          f"model calls, {st['accepted']} accepted and {st['rejected']} "
+          f"rejected steps; {img_s:.4f} images/s", flush=True)
+    if k1 != DEPTH * calls or k2 != 0:
+        fail(f"dopri5: K1 / K2 launched {k1} / {k2} times for {calls} model "
+             f"calls, expected {DEPTH} / 0 a call")
+    if calls != 7 * (st["accepted"] + st["rejected"]) or calls < 7 * 249:
+        fail(f"dopri5: {calls} model calls for {st}")
+    return dict(images_per_s=img_s, model_calls=calls, k1=k1, **st)
+
+
+def sample_sde_phase(ckpt, tmp):
+    """``sample_mode=SDE`` at the ``sde`` config (Euler, 250 steps, sigma
+    diffusion, Mean last step 0.04), batch 16: one model call a drift
+    evaluation, so K1 launched 24 x 250 times."""
+    res, calls, k1, k2 = run_sample_cli("sample CLI SDE", [
+        f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "sample_mode=SDE",
+        f"offline_sample_local_bs={BATCH}", f"num_fid_samples={BATCH}",
+        f"sample_dir={tmp}"])
+    img_s = BATCH / res["batch_seconds"][0]
+    print(f"flagship SDE Euler-250 + Mean, batch {BATCH}: {img_s:.4f} "
+          f"images/s", flush=True)
+    if calls != 250 or k1 != DEPTH * 250 or k2 != 0:
+        fail(f"SDE: {calls} model calls, K1 / K2 {k1} / {k2}; expected 250, "
+             f"{DEPTH * 250} / 0")
+    return dict(images_per_s=img_s, k1=k1)
+
+
+def likelihood_phase(ckpt, tmp):
+    """``likelihood=true`` by Euler, 10 steps, batch 4: each of the 9 drift
+    evaluations runs the model forward (remat: K1 twice a layer) and its
+    vector-Jacobian product (K2 once a layer)."""
+    res, calls, k1, k2 = run_sample_cli("sample CLI likelihood", [
+        f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "likelihood=true",
+        "ode.sampling_method=euler", "ode.num_sampling_steps=10",
+        f"offline_sample_local_bs={LIK_BATCH}",
+        f"num_fid_samples={LIK_BATCH}", f"sample_dir={tmp}"])
+    (logp,) = res["logp"]
+    print(f"flagship likelihood euler-10, batch {LIK_BATCH}: logp "
+          f"{[round(float(v), 2) for v in logp]}; "
+          f"{LIK_BATCH / res['batch_seconds'][0]:.4f} samples scored/s",
+          flush=True)
+    if calls != 9 or k1 != 2 * DEPTH * 9 or k2 != DEPTH * 9:
+        fail(f"likelihood: {calls} drift evaluations, K1 / K2 {k1} / {k2}; "
+             f"expected 9, {2 * DEPTH * 9} / {DEPTH * 9}")
+    if not all(math.isfinite(float(v)) for v in logp):
+        fail(f"likelihood: logp {logp}")
+    return dict(k1=k1, k2=k2, logp=[float(v) for v in logp])
+
+
+def video_train_phase(tmp):
+    """``cli.train`` on the video ZigMa 3d_zigzag8sst_b2 (UCF101's shapes:
+    16 frames of 32x32x4 latents, 101 classes with the label drop 0.1),
+    synthetic data, batch 4 (UCF101's 20 cut for time), 8 steps: K1 48 and
+    K2 24 launches a step; the checkpoint loads into the sampler's model
+    with strict=True."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli import train as train_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # by earlier phases
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train_cli.main([*VIDEO_ARGS, f"data.batch_size={VIDEO_BATCH}",
+                          f"data.train_steps={TRAIN_STEPS}", "log_every=1",
+                          f"results_dir={tmp}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, p1, p2 = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 VIDEO_ARGS)
+    fresh = sample_cli.build_model(cfg, device="cuda")
+    fresh.load_state_dict(sample_cli.load_state_dict(res["checkpoint"]),
+                          strict=True)
+    del fresh
+    model = res["state"].model
+    losses = [r["loss"] for r in res["records"]]
+    print(f"video train CLI: {len(losses)} steps in {wall:.2f} s (model "
+          f"build included); {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"params, dtype {model.dtype}, remat {model.use_checkpoint}, "
+          f"{model.video_frames} frames, {model.num_classes} classes, label "
+          f"drop {model.class_dropout_prob}; losses "
+          f"{[round(v, 4) for v in losses]}; K1 {k1}, K2 {k2} launches "
+          f"(expected {2 * DEPTH * TRAIN_STEPS} / {DEPTH * TRAIN_STEPS}); plain "
+          f"{(p1, p2)}; EMA loaded with strict=True into the sampler's model",
+          flush=True)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"video training losses {losses}")
+    if (k1, k2, p1, p2) != (2 * DEPTH * TRAIN_STEPS, DEPTH * TRAIN_STEPS,
+                            0, 0):
+        fail(f"video training: K1 / K2 / plain {(k1, k2, p1, p2)} in "
+             f"{TRAIN_STEPS} steps, expected {2 * DEPTH} / {DEPTH} / 0 a "
+             f"step")
+    steady = [1.0 / r["steps_per_sec"] for r in res["records"][1:]]
+    steps_s = len(steady) / sum(steady)
+    print(f"video training, batch {VIDEO_BATCH}: {steps_s:.4f} steps/s, "
+          f"{steps_s * VIDEO_BATCH:.3f} videos/s (steady steps 2-"
+          f"{TRAIN_STEPS}, range {min(steady):.4f}-{max(steady):.4f} s; first "
+          f"step {1.0 / res['records'][0]['steps_per_sec']:.3f} s); peak "
+          f"device memory {peak_gb:.2f} GB, of which {held_gb:.2f} GB held "
+          f"by earlier phases before the run", flush=True)
+    return res["state"], res["checkpoint"], dict(
+        steps_per_s=steps_s, videos_per_s=steps_s * VIDEO_BATCH,
+        peak_gb=peak_gb, held_gb=held_gb, k1=k1, k2=k2)
+
+
+def video_sample_phase(gen, ckpt, tmp):
+    """``cli.sample`` from the video checkpoint, its weights perturbed by
+    0.02 so the (trained-from-zero) gates are open, with classifier-free
+    guidance 4 (one doubled batch a call), 50-step Euler, 2 batches of 4:
+    K1 launched 24 x 49 times a batch; a .npy a batch and a .gif a video."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+
+    sd = sample_cli.load_state_dict(ckpt)
+    with torch.no_grad():
+        sd = {k: v + 0.02 * torch.randn(v.shape, generator=gen,
+                                        device="cuda").to(v.device)
+              for k, v in sd.items()}
+    vckpt = os.path.join(tmp, "video.pt")
+    torch.save({"ema": sd}, vckpt)
+    res, calls, k1, k2 = run_sample_cli("video sample CLI (cfg 4)", [
+        f"ckpt={vckpt}", *VIDEO_ARGS, "cfg_scale=4", "sample_mode=ODE",
+        "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
+        f"offline_sample_local_bs={VIDEO_BATCH}",
+        f"num_fid_samples={2 * VIDEO_BATCH}", f"sample_dir={tmp}"])
+    files = sorted(os.listdir(res["out_dir"]))
+    want = ([f"{i:06d}.gif" for i in range(2 * VIDEO_BATCH)]
+            + ["video_0_0.npy", "video_1_0.npy"])
+    videos_s = VIDEO_BATCH / res["batch_seconds"][1]
+    print(f"video sampling, cfg 4, 50-step Euler, batch {VIDEO_BATCH} "
+          f"({2 * VIDEO_BATCH} under CFG): {videos_s:.4f} videos/s (second "
+          f"batch; first {res['batch_seconds'][0]:.3f} s); files {files}",
+          flush=True)
+    if files != want:
+        fail(f"video sampling wrote {files}, expected {want}")
+    if res["model_calls"] != [STEPS - 1] * 2 or k1 != 2 * DEPTH * (STEPS - 1):
+        fail(f"video sampling: model calls {res['model_calls']}, K1 {k1}; "
+             f"expected {STEPS - 1} and {DEPTH * (STEPS - 1)} a batch")
+    return vckpt, dict(videos_per_s=videos_s, k1=k1)
 
 
 def _kind(key):
@@ -935,15 +1255,18 @@ def profile_phase(what, fn):
               f"{e.key[:90]}", flush=True)
 
 
-def train_step_fn(state, gen):
-    """One flagship training step on a fixed batch (for the profile)."""
+def train_step_fn(state, gen, x_shape, num_classes=-1):
+    """One training step of ``state`` on a fixed batch (for the profile)."""
     import torch
     from zigma_tpu_torch.train import (LATENT_SCALE, make_diffusion_loss_fn,
                                        train_step)
     from zigma_tpu_torch.transport import create_transport
     loss_fn = make_diffusion_loss_fn(state.model, create_transport(),
                                      latent_scale=LATENT_SCALE)
-    batch = {"x": torch.randn(BATCH, 4, 32, 32, generator=gen, device="cuda")}
+    batch = {"x": torch.randn(x_shape, generator=gen, device="cuda")}
+    if num_classes > 0:
+        batch["y"] = torch.randint(0, num_classes, x_shape[:1], generator=gen,
+                                   device="cuda")
     step_gen = torch.Generator(device="cuda").manual_seed(1)
     return lambda: train_step(state, loss_fn, batch, step_gen)["loss"].item()
 
@@ -994,48 +1317,114 @@ def main():
     k1 = kernel_phase(gen)
     phase("kernel bwd")
     k2 = kernel_bwd_phase(gen)
-    phase("sample (main path of the serving slice)")
-    model, x, t, e2e = main_path_phase(gen)
-    phase("train (main path of this slice)")
-    state, tr = train_phase(gen)
-    phase("grad check")
-    grad_check_phase(gen)
-    phase("profile")
+    phase("kernels at the video shapes")
+    kv = video_kernel_phase(gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("sample (main path of the serving slice)")
+        model, x, t, e2e = main_path_phase(gen, tmp)
+        phase("train (main path of the training slice)")
+        state, tr = train_phase(gen)
+        phase("grad check")
+        grad_check_phase(gen, "flagship-width depth 2", (2, 4, 32, 32),
+                         depth=2, img_dim=32, patch_size=1,
+                         scan_type="zigzagN8")
+        phase("sample dopri5 (the default ode config)")
+        dp = sample_dopri5_phase(e2e["ckpt"], tmp)
+        phase("sample SDE (the default sde config)")
+        sde = sample_sde_phase(e2e["ckpt"], tmp)
+        phase("likelihood")
+        lik = likelihood_phase(e2e["ckpt"], tmp)
+        phase("video train (3d_zigzag8sst_b2)")
+        vstate, vckpt, vtr = video_train_phase(tmp)
+        phase("video sample (3d_zigzag8sst_b2, cfg 4)")
+        vckpt, vs = video_sample_phase(gen, vckpt, tmp)
+        phase("video grad check")
+        grad_check_phase(gen, "flagship-width video depth 3 (s, s, t)",
+                         (2, 16, 4, 32, 32), depth=3, img_dim=32,
+                         patch_size=2, scan_type="zzvideo_sst",
+                         video_frames=16, tpe=True, num_classes=101,
+                         class_dropout_prob=0.1)
+        phase("profile")
 
-    def forward():
-        with torch.inference_mode():
-            model(x, t)
+        def forward():
+            with torch.inference_mode():
+                model(x, t)
 
-    profile_phase("one flagship forward (sampling)", forward)
-    del model
-    profile_phase(f"one flagship training step (batch {BATCH})",
-                  train_step_fn(state, gen))
+        profile_phase("one flagship forward (sampling)", forward)
+        del model
+        profile_phase(f"one flagship training step (batch {BATCH})",
+                      train_step_fn(state, gen, (BATCH, 4, 32, 32)))
+        del state
+        profile_phase(f"one video training step (batch {VIDEO_BATCH})",
+                      train_step_fn(vstate, gen, (VIDEO_BATCH, 16, 4, 32, 32),
+                                    101))
+        del vstate
+        vmodel, vx, vt, vy = guided_video_inputs(gen, vckpt)
+
+        def guided():
+            with torch.inference_mode():
+                vmodel.forward_with_cfg(vx, vt, vy, 4.0)
+
+        profile_phase(f"one guided video forward (batch {VIDEO_BATCH}, "
+                      f"{2 * VIDEO_BATCH} under CFG)", guided)
 
     kernels = [
         dict(name="selective_scan_fwd", route="cuda",
              source="zigma_tpu_torch/csrc/selective_scan_fwd.cu",
              replaces="zigma_tpu/ops/scan_pallas.py:55",
              launches=tr["k1"],
-             launches_by_path={"train": tr["k1"], "sample": e2e["launches"]},
+             launches_by_path={"train": tr["k1"], "sample": e2e["launches"],
+                               "sample_dopri5": dp["k1"],
+                               "sample_sde": sde["k1"],
+                               "likelihood": lik["k1"],
+                               "video_train": vtr["k1"],
+                               "video_sample": vs["k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
+             bound_by=k1["bound_by"], library_ms=None,
+             video_shapes=kv["K1"]),
         dict(name="selective_scan_bwd", route="cuda",
              source="zigma_tpu_torch/csrc/selective_scan_bwd.cu",
              replaces="zigma_tpu/ops/scan_pallas.py:418",
-             launches=tr["k2"], launches_by_path={"train": tr["k2"]},
+             launches=tr["k2"],
+             launches_by_path={"train": tr["k2"], "likelihood": lik["k2"],
+                               "video_train": vtr["k2"]},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None)]
+             bound_by=k2["bound_by"], library_ms=None,
+             video_shapes=kv["K2"])]
     print(f"\nflagship sampling {e2e['images_per_s']:.4f} images/s, forward "
           f"{e2e['forward_ms']:.3f} ms; training {tr['steps_per_s']:.4f} "
           f"steps/s, {tr['images_per_s']:.3f} images/s, peak "
-          f"{tr['peak_gb']:.2f} GB")
+          f"{tr['peak_gb']:.2f} GB; dopri5 {dp['model_calls']} model calls "
+          f"({dp['accepted']} accepted, {dp['rejected']} rejected), "
+          f"{dp['images_per_s']:.4f} images/s; SDE {sde['images_per_s']:.4f} "
+          f"images/s; video training {vtr['steps_per_s']:.4f} steps/s, "
+          f"{vtr['videos_per_s']:.3f} videos/s, peak {vtr['peak_gb']:.2f} GB "
+          f"({vtr['held_gb']:.2f} GB held before it); "
+          f"guided video sampling {vs['videos_per_s']:.4f} videos/s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+
+
+def guided_video_inputs(gen, ckpt):
+    """The sampler's video model (bf16 inference cast) from ``ckpt`` and
+    one batch of its inputs, for the guided forward's profile."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.utils.inference import cast_for_inference
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 VIDEO_ARGS)
+    model = sample_cli.build_model(cfg, device="cuda")
+    model.load_state_dict(sample_cli.load_state_dict(ckpt))
+    cast_for_inference(model, model.dtype).eval()
+    x = torch.randn(VIDEO_BATCH, 16, 4, 32, 32, generator=gen, device="cuda")
+    t = torch.rand(VIDEO_BATCH, generator=gen, device="cuda")
+    y = torch.randint(0, 101, (VIDEO_BATCH,), generator=gen, device="cuda")
+    return model, x, t, y
 
 
 if __name__ == "__main__":

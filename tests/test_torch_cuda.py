@@ -370,3 +370,85 @@ def test_tiny_model_gradients_kernels_match_plain(gen):
     assert abs(loss_k - loss_r) <= TOL_FP32 * abs(loss_r)
     for n in gr:
         assert _rel(gk[n], gr[n]) <= TOL_FP32, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,L", [(256, 16), (8, 256)])
+def test_kernels_at_video_shapes(gen, dtype, batch, L):
+    """K1 and K2 at a temporal video layer's length (16: shorter than a
+    staged chunk and a forward-pass tile, one reverse tile) with many
+    sequences, and at a spatial layer's (256), fused, with z, B and C
+    strided as the model passes them."""
+    import chip_smoke
+    d = chip_smoke.strided_like_the_model(_inputs(gen, batch, L, 96, 16,
+                                                  dtype))
+    with torch.inference_mode():
+        got = scan_cuda.selective_scan_fwd_cuda(
+            d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"],
+            d["Dskip"], d["z"])
+        ref = selective_scan_ref(d["u"], d["delta"], d["A"], d["B"], d["C"],
+                                 d["Dskip"], d["z"], d["bias"], True)
+    torch.cuda.synchronize()
+    ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+    assert _rel(got[0], ref[0], ulp) <= TOL_FP32
+    assert _rel(got[1], ref[1]) <= TOL_FP32
+    assert _rel(got[2], ref[2]) <= TOL_FP32
+    _check_bwd(dtype, True, *_bwd_case(gen, batch, L, 96, 16, dtype, True,
+                                       True, strided=True))
+
+
+def test_batch_beyond_the_grid_limit_raises_before_launch(gen):
+    """65536 sequences (a guided batch of 128 videos' temporal layers) is
+    one past the kernels' gridDim.y: a ValueError naming the limit and the
+    fold, and no launch."""
+    B, L, D, N = scan_cuda.MAX_BATCH + 1, 1, 2, 1
+    d = _inputs(gen, B, L, D, N, torch.float32)
+    before = (scan_cuda.selective_scan_fwd_cuda.launches,
+              scan_cuda.selective_scan_bwd_cuda.launches)
+    with pytest.raises(ValueError, match="65535.*temporal layers"):
+        scan_cuda.selective_scan_fwd_cuda(d["u"], d["delta"], d["A"], d["B"],
+                                          d["C"], d["bias"])
+    carries = torch.zeros(B, 1, N, D, device="cuda")
+    with pytest.raises(ValueError, match="65535.*temporal layers"):
+        scan_cuda.selective_scan_bwd_cuda(d["u"], d["delta"], d["bias"],
+                                          d["A"], d["B"], d["C"], carries,
+                                          d["u"])
+    assert (scan_cuda.selective_scan_fwd_cuda.launches,
+            scan_cuda.selective_scan_bwd_cuda.launches) == before
+
+
+def test_tiny_video_model_kernels_match_plain(gen):
+    """A perturbed small-width class-conditional video ZigMa (s, s, t
+    layers, 4 frames, label drop and remat): forward, loss and gradients
+    through K1/K2 against the same through the plain versions, with the
+    same generator seed."""
+    from zigma_tpu_torch.train import make_diffusion_loss_fn
+    from zigma_tpu_torch.transport import create_transport
+
+    model = ZigMa(in_channels=4, embed_dim=64, depth=3, img_dim=8,
+                  patch_size=2, scan_type="zzvideo_sst", video_frames=4,
+                  tpe=True, use_pe=2, num_classes=5, class_dropout_prob=0.5,
+                  use_checkpoint=True, device="cuda", generator=gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    batch = {"x": torch.randn(3, 4, 4, 8, 8, generator=gen, device="cuda"),
+             "y": torch.randint(0, 5, (3,), generator=gen, device="cuda")}
+    loss_fn = make_diffusion_loss_fn(model, create_transport())
+    results = []
+    for backend in ("auto", "ref"):
+        for blk in model.blocks:
+            blk.mixer.scan_backend = backend
+        with torch.inference_mode():
+            fwd = model(batch["x"], torch.full((3,), 0.3, device="cuda"),
+                        batch["y"])
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(batch, torch.Generator(device="cuda").manual_seed(3))
+        loss.backward()
+        results.append((fwd, loss.item(), {
+            n: p.grad.clone() for n, p in model.named_parameters()}))
+    (fk, loss_k, gk), (fr, loss_r, gr) = results
+    assert _rel(fk, fr) <= TOL_FP32
+    assert abs(loss_k - loss_r) <= TOL_FP32 * abs(loss_r)
+    for n in gr:
+        assert _rel(gk[n], gr[n]) <= TOL_FP32, n

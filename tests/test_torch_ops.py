@@ -23,8 +23,9 @@ SCAN_TYPES = ["v1", "v2", "zigzagN8", "zigzagN2", "hilbertN8", "randomN4"]
 @pytest.mark.parametrize("side", [4, 8, 16])
 @pytest.mark.parametrize("scan_type", SCAN_TYPES)
 def test_layer_paths_bit_equal(scan_type, side):
-    p, pr = paths.build_layer_paths(scan_type, 10, side, seed=3)
-    jp, jpr, _ = jax_paths.build_layer_paths(scan_type, 10, side, seed=3)
+    p, pr, st = paths.build_layer_paths(scan_type, 10, side, seed=3)
+    jp, jpr, jst = jax_paths.build_layer_paths(scan_type, 10, side, seed=3)
+    assert st is None and jst is None
     for a, b in zip(p + pr, jp + jpr):
         if b is None:
             assert a is None
@@ -43,11 +44,22 @@ def test_curve_generators_bit_equal(side):
 
 
 def test_later_slice_scan_types_raise():
-    for scan_type in ("parallelN4", "zzvideo_sst", "video_sst"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    """parallelN and the video scans build now (their tables are held
+    against JAX in test_torch_video.py); what JAX refuses, the port
+    refuses too."""
+    assert paths.build_layer_paths("parallelN4", 2, 4) == ([None] * 2,
+                                                            [None] * 2, None)
+    for scan_type in ("zzvideo_sst", "video_sst"):
+        _, _, st = paths.build_layer_paths(scan_type, 4, 4, video_frames=2)
+        assert st == "ssts"
+        with pytest.raises(ValueError, match="video_frames > 0"):
             paths.build_layer_paths(scan_type, 2, 4)
+    with pytest.raises(ValueError, match="'s'/'t'"):
+        paths.build_layer_paths("zzvideo_sxt", 2, 4, video_frames=2)
     with pytest.raises(ValueError, match="zero paths"):
         paths.build_layer_paths("zigzagN0", 2, 4)
+    with pytest.raises(ValueError, match="unknown scan_type"):
+        paths.build_layer_paths("spiral", 2, 4)
 
 
 @pytest.mark.parametrize("kind", ["rms", "layer"])

@@ -57,11 +57,23 @@ def test_ode_sample_matches_jax(models, method, steps):
 
 
 def test_unported_samplers_raise():
+    """dopri5 and the SDE sampler run now (held against JAX in
+    test_torch_samplers.py); unknown methods raise at construction, as in
+    the JAX sampler, and an SDE with no source of noise raises."""
     sampler = Sampler(create_transport())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sampler.sample_ode(sampling_method="dopri5")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sampler.sample_sde()
+    z = torch.zeros(2, 4, 2, 2)
+    traj = sampler.sample_ode(sampling_method="dopri5", num_steps=3)(
+        z, lambda x, t: -x)
+    assert traj.shape == (3, 2, 4, 2, 2)
+    sde = sampler.sample_sde(num_steps=3, diffusion_form="sigma")
+    traj = sde(z, lambda x, t: -x, generator=torch.Generator().manual_seed(0))
+    assert traj.shape == (3, 2, 4, 2, 2)
+    with pytest.raises(ValueError, match="generator"):
+        sde(z, lambda x, t: -x)
+    with pytest.raises(NotImplementedError, match="unknown ODE"):
+        sampler.sample_ode(sampling_method="rk4")
+    with pytest.raises(NotImplementedError, match="unknown SDE"):
+        sampler.sample_sde(sampling_method="Milstein")
 
 
 def _overrides(tmp_path, ckpt):
@@ -99,6 +111,7 @@ def test_sample_cli_refuses_cpu_unless_asked(tmp_path):
         pytest.skip("this machine has CUDA: the default device is usable")
     with pytest.raises(RuntimeError, match="device=cpu"):
         sample_cli.main(_overrides(tmp_path, "unused.pt"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sample_cli.main(_overrides(tmp_path, "unused.pt")
-                        + ["device=cpu", "sample_mode=SDE"])
+    for extra in (["decode_latents=true"], ["metrics=[fid]"]):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            sample_cli.main(_overrides(tmp_path, "unused.pt")
+                            + ["device=cpu", "sample_mode=SDE", *extra])

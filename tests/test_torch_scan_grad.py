@@ -179,7 +179,7 @@ def test_autograd_function_routes_and_types():
 def test_permute_tokens_gradient(scan_type):
     """The inverse-gather backward equals JAX's custom VJP and torch
     indexing's scatter-add, bit for bit (each row receives one row)."""
-    perms, revs = build_layer_paths(scan_type, 3, 8, seed=1)
+    perms, revs, _ = build_layer_paths(scan_type, 3, 8, seed=1)
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 64, 16)).astype(np.float32)
     w = rng.standard_normal((2, 64, 16)).astype(np.float32)

@@ -347,5 +347,9 @@ def test_train_cli_refuses_what_this_slice_lacks(tmp_path):
             _train(tmp_path, *extra)
     with pytest.raises(NotImplementedError, match="not ported"):
         _train(tmp_path, "chain_steps=4")
-    with pytest.raises(NotImplementedError, match="dopri5"):
-        _train(tmp_path, "data.train_steps=2", "sample_every=1")
+    # in-training sampling with the configured ODE method, the default
+    # dopri5 included (fewer save points than the config's 250)
+    res = _train(tmp_path, "data.train_steps=2", "sample_every=1",
+                 "ode.num_sampling_steps=3")
+    assert sorted(os.listdir(os.path.join(res["run_dir"], "vis"))) == [
+        "0000001.png", "0000002.png"]

@@ -9,7 +9,10 @@ JAX default at depth >= 8, so the flagship's params look like that).
 
 Layout rules: flax Dense kernel (in, out) -> torch weight (out, in); flax
 Conv kernel (kh, kw, in, out) -> (out, in, kh, kw); depthwise conv taps
-(d, w) -> (d, 1, w); the ``scan_b`` branch -> the ``_b`` parameter names.
+(d, w) -> (d, 1, w); the ``scan_b`` branch -> the ``_b`` parameter names,
+the parallelN branches ``scan_b{j}`` -> the reference's ``*_b_list.{j}``
+names (``A_b_log_list.{j}``, ``conv1d_b_list.{j}.weight``, ...).  The label
+table is copied whole, with its null-class row where the model has one.
 """
 
 from __future__ import annotations
@@ -30,15 +33,21 @@ def _dense(sd: dict, name: str, tree: dict):
         sd[f"{name}.bias"] = _tensor(tree["bias"])
 
 
-def _branch(sd: dict, pre: str, br: dict, s: str):
-    sd[f"{pre}.A{s}_log"] = _tensor(br["A_log"])
-    sd[f"{pre}.D{s}"] = _tensor(br["D"])
-    sd[f"{pre}.conv1d{s}.weight"] = _tensor(np.asarray(br["conv1d_weight"])[:, None, :])
+def _branch(sd: dict, pre: str, br: dict, s: str, j: str = ""):
+    """One scan branch: ``s`` is '' or '_b' (v2), ``j`` '.{j}' of a
+    parallelN branch, whose names end in ``_b_list.{j}``."""
+    A, D, conv, x_proj, dt_proj = (
+        (f"A{s}_log", f"D{s}", f"conv1d{s}", f"x_proj{s}", f"dt_proj{s}")
+        if not j else (f"A_b_log_list{j}", f"D_b_list{j}", f"conv1d_b_list{j}",
+                       f"x_proj_b_list{j}", f"dt_proj_b_list{j}"))
+    sd[f"{pre}.{A}"] = _tensor(br["A_log"])
+    sd[f"{pre}.{D}"] = _tensor(br["D"])
+    sd[f"{pre}.{conv}.weight"] = _tensor(np.asarray(br["conv1d_weight"])[:, None, :])
     if "conv1d_bias" in br:
-        sd[f"{pre}.conv1d{s}.bias"] = _tensor(br["conv1d_bias"])
-    sd[f"{pre}.x_proj{s}.weight"] = _tensor(np.asarray(br["x_proj_kernel"]).T)
-    sd[f"{pre}.dt_proj{s}.weight"] = _tensor(np.asarray(br["dt_proj_kernel"]).T)
-    sd[f"{pre}.dt_proj{s}.bias"] = _tensor(br["dt_proj_bias"])
+        sd[f"{pre}.{conv}.bias"] = _tensor(br["conv1d_bias"])
+    sd[f"{pre}.{x_proj}.weight"] = _tensor(np.asarray(br["x_proj_kernel"]).T)
+    sd[f"{pre}.{dt_proj}.weight"] = _tensor(np.asarray(br["dt_proj_kernel"]).T)
+    sd[f"{pre}.{dt_proj}.bias"] = _tensor(br["dt_proj_bias"])
 
 
 def _block(sd: dict, pre: str, blk: dict):
@@ -51,16 +60,18 @@ def _block(sd: dict, pre: str, blk: dict):
     if "norm_bias" in blk:
         sd[f"{pre}.norm.bias"] = _tensor(blk["norm_bias"])
     _dense(sd, f"{pre}.adaLN_modulation.1", blk["adaLN"])
-    mixer = blk["mixer"]
-    extra = set(mixer) - {"in_proj", "out_proj", "scan", "scan_b"}
-    if extra:
-        raise NotImplementedError(f"{pre}.mixer: {sorted(extra)} (parallelN "
-                                  f"lands in a later slice of the port)")
-    _dense(sd, f"{pre}.mixer.in_proj", mixer["in_proj"])
-    _dense(sd, f"{pre}.mixer.out_proj", mixer["out_proj"])
-    _branch(sd, f"{pre}.mixer", mixer["scan"], "")
+    mixer = dict(blk["mixer"])
+    _dense(sd, f"{pre}.mixer.in_proj", mixer.pop("in_proj"))
+    _dense(sd, f"{pre}.mixer.out_proj", mixer.pop("out_proj"))
+    _branch(sd, f"{pre}.mixer", mixer.pop("scan"), "")
     if "scan_b" in mixer:
-        _branch(sd, f"{pre}.mixer", mixer["scan_b"], "_b")
+        _branch(sd, f"{pre}.mixer", mixer.pop("scan_b"), "_b")
+    j = 0
+    while f"scan_b{j}" in mixer:  # parallelN
+        _branch(sd, f"{pre}.mixer", mixer.pop(f"scan_b{j}"), "", f".{j}")
+        j += 1
+    if mixer:
+        raise ValueError(f"{pre}.mixer: unknown JAX params {sorted(mixer)}")
 
 
 def _unstack(tree, i: int):
@@ -86,8 +97,9 @@ def state_dict_from_jax(params: dict) -> dict:
             raise NotImplementedError("text y_embedder lands in a later slice")
         sd["y_embedder.embedding_table.weight"] = _tensor(
             ye["embedding"]["embedding"])
-    if "pos_embed" in p:
-        sd["pos_embed"] = _tensor(p.pop("pos_embed"))
+    for key in ("pos_embed", "temporal_pos_embedding"):
+        if key in p:
+            sd[key] = _tensor(p.pop(key))
 
     if "blocks" in p:  # stacked scan-over-layers layout
         stacked = p.pop("blocks")
@@ -108,6 +120,6 @@ def state_dict_from_jax(params: dict) -> dict:
     _dense(sd, "final_layer.linear", fl["linear"])
     if p:
         raise NotImplementedError(
-            f"unconverted JAX params {sorted(p)} (temporal PE, per-layer PE "
-            f"and other extras land in a later slice of the port)")
+            f"unconverted JAX params {sorted(p)} (per-layer PE and other "
+            f"extras land in a later slice of the port)")
     return sd

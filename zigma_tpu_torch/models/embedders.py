@@ -30,7 +30,8 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 
 class PatchEmbed(nn.Module):
-    """Conv patchify: (B, C, H, W) -> (B, L, D), L = (H/p)*(W/p) row-major."""
+    """Conv patchify: (B, C, H, W) -> (B, L, D), L = (H/p)*(W/p) row-major;
+    video (B, T, C, H, W) -> (B, T*L, D), frame by frame."""
 
     def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -47,10 +48,15 @@ class PatchEmbed(nn.Module):
         nn.init.zeros_(self.proj.bias)
 
     def forward(self, x):
+        video = x.dim() == 5
+        if video:
+            B, T = x.shape[:2]
+            x = x.reshape(B * T, *x.shape[2:])
         p = self.proj
         h = F.conv2d(x.to(self.dtype), p.weight.to(self.dtype),
                      p.bias.to(self.dtype), stride=p.stride)
-        return h.flatten(2).transpose(1, 2)
+        h = h.flatten(2).transpose(1, 2)
+        return h.reshape(B, -1, h.shape[-1]) if video else h
 
 
 class TimestepEmbedder(nn.Module):
@@ -91,21 +97,40 @@ class TimestepEmbedder(nn.Module):
 
 
 class LabelEmbedder(nn.Module):
-    """Class-label table; one extra null row when trained with CFG label
-    drop (``dropout_prob > 0``).  Inference only: the training-time drop is
-    a later slice.  The lookup stays float32, as in the JAX package."""
+    """Class-label table with the classifier-free-guidance label drop.
+
+    The table has one extra null row (index ``num_classes``) only when
+    ``dropout_prob > 0``.  Under training each label is replaced by the null
+    one with probability ``dropout_prob``, drawn from ``generator``;
+    ``force_drop_ids`` (1 = drop) replaces the draw.  The lookup stays
+    float32, as in the JAX package."""
 
     def __init__(self, num_classes: int, hidden_size: int,
                  dropout_prob: float = 0.0, device=None):
         super().__init__()
-        self.num_classes = num_classes
+        self.num_classes, self.dropout_prob = num_classes, dropout_prob
         self.embedding_table = nn.Embedding(
             num_classes + int(dropout_prob > 0), hidden_size, device=device)
 
     def reset_parameters(self, generator=None):
         normal_(self.embedding_table.weight, 0.02, generator)
 
-    def forward(self, labels: torch.Tensor):
+    def forward(self, labels: torch.Tensor, train: bool = False,
+                force_drop_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        use_cfg = self.dropout_prob > 0
+        if (train and use_cfg) or force_drop_ids is not None:
+            if not use_cfg:
+                # without the null row, index num_classes does not exist
+                raise ValueError(
+                    "force_drop_ids requires dropout_prob > 0: the embedding "
+                    "table has no null-class row at dropout_prob == 0")
+            if force_drop_ids is None:
+                drop = torch.rand(labels.shape, generator=generator,
+                                  device=labels.device) < self.dropout_prob
+            else:
+                drop = force_drop_ids == 1
+            labels = torch.where(drop, self.num_classes, labels)
         return self.embedding_table(labels)
 
 

@@ -23,9 +23,17 @@ passed in as tensors: a recomputed block then sees the same mask, whereas a
 mask drawn inside it would come out different (checkpoint restores the
 global RNG state, not an explicit generator).
 
-Text cross-attention, video, use_pe=3, the Mamba-2 mixer, selective remat
-policies and the class-label drop under training are later slices: asking
-for them raises.
+Video models (``video_frames > 0``) take (B, T, C, H, W) latents: the
+frames are patchified one by one into T*L tokens, the position table covers
+all of them (``use_pe`` 1 tiles the 2-D table over the frames, 2 learns
+``num_patches * T`` rows), ``tpe`` adds a learned per-frame embedding, each
+layer's mixer folds the frames as its 's' / 't' pattern says, and the output
+is unpatchified back to (B, T, C, H, W).  Class labels are dropped to the
+null class under training (CFG training), drawn from the same generator as
+the drop-path masks; ``forward_with_cfg`` runs the guided forward.
+
+Text cross-attention, use_pe=3, the Mamba-2 mixer and selective remat
+policies are later slices: asking for them raises.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from zigma_tpu_torch.models.embedders import (LabelEmbedder, PatchEmbed,
 from zigma_tpu_torch.models.inits import torch_linear_init_
 from zigma_tpu_torch.models.mamba import Mamba
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm
-from zigma_tpu_torch.ops.paths import build_layer_paths
+from zigma_tpu_torch.ops.paths import build_layer_paths, parallel_scan_perms
 
 __all__ = ["ZigMa", "ZigMaBlock", "FinalLayer", "ZIGMA_PRESETS", "zigma_flops",
            "modulate", "drop_path", "drop_path_rates"]
@@ -142,8 +150,9 @@ class FinalLayer(nn.Module):
 
 
 class ZigMa(nn.Module):
-    """The denoiser: ``model(x, t, y=None)`` with x (B, C, H, W) latents,
-    t (B,) in [0, 1], y optional class labels (B,)."""
+    """The denoiser: ``model(x, t, y=None)`` with x (B, C, H, W) latents or
+    (B, T, C, H, W) video latents, t (B,) in [0, 1], y optional class
+    labels (B,)."""
 
     def __init__(self, in_channels: int, embed_dim: int, depth: int,
                  img_dim: int, patch_size: int = 1, num_classes: int = -1,
@@ -154,7 +163,8 @@ class ZigMa(nn.Module):
                  remat_policy: Optional[str] = None,
                  ssm_cfg: Optional[dict] = None, path_seed: int = 0,
                  scan_backend: str = "auto", has_text: bool = False,
-                 video_frames: int = 0, dtype: torch.dtype = torch.float32,
+                 video_frames: int = 0, tpe: bool = False,
+                 dtype: torch.dtype = torch.float32,
                  device=None, generator: Optional[torch.Generator] = None,
                  **unsupported):
         super().__init__()
@@ -162,16 +172,14 @@ class ZigMa(nn.Module):
         later = dict(unsupported)
         if has_text:
             later["has_text"] = has_text
-        if video_frames:
-            later["video_frames"] = video_frames
         if use_pe not in (0, 1, 2):
             later["use_pe"] = use_pe
         if int(ssm_cfg.pop("ssm_version", 1)) != 1:
             later["ssm_cfg.ssm_version"] = 2
         if later:
             raise NotImplementedError(
-                f"{later}: lands in a later slice of the port (this slice "
-                f"serves image ZigMa with Mamba-1 mixers, use_pe 0-2, "
+                f"{later}: lands in a later slice of the port (the port "
+                f"has image and video ZigMa with Mamba-1 mixers, use_pe 0-2, "
                 f"unconditional or class labels)")
         self.in_channels, self.embed_dim, self.depth = in_channels, embed_dim, depth
         self.img_dim, self.patch_size = img_dim, patch_size
@@ -180,6 +188,7 @@ class ZigMa(nn.Module):
         self.residual_in_fp32 = residual_in_fp32
         self.drop_path_rate, self.use_checkpoint = drop_path_rate, use_checkpoint
         self.class_dropout_prob = class_dropout_prob
+        self.video_frames, self.tpe = video_frames, tpe
         if remat_policy is not None:
             if remat_policy not in ("scan_out", "dots", "scan_out+dots"):
                 raise ValueError(f"unknown remat_policy {remat_policy!r}; one "
@@ -190,6 +199,7 @@ class ZigMa(nn.Module):
 
         side = img_dim // patch_size
         n_patches = side * side
+        n_frames = max(video_frames, 1)
         self.x_embedder = PatchEmbed(patch_size, in_channels, embed_dim,
                                      dtype=dtype, device=device)
         self.t_embedder = TimestepEmbedder(embed_dim, dtype=dtype, device=device)
@@ -198,15 +208,25 @@ class ZigMa(nn.Module):
                                             class_dropout_prob, device=device)
         if use_pe == 1:
             self.register_buffer(
-                "pe_table", get_2d_sincos_pos_embed(embed_dim, side, device),
-                persistent=False)
+                "pe_table", get_2d_sincos_pos_embed(embed_dim, side, device)
+                .repeat(n_frames, 1), persistent=False)
         elif use_pe == 2:
             self.pos_embed = nn.Parameter(
-                torch.zeros(1, n_patches, embed_dim, device=device))
-        paths, paths_rev = build_layer_paths(scan_type, depth, side, seed=path_seed)
+                torch.zeros(1, n_patches * n_frames, embed_dim, device=device))
+        if video_frames > 0 and tpe:
+            self.temporal_pos_embedding = nn.Parameter(
+                torch.zeros(1, video_frames, embed_dim, device=device))
+        paths, paths_rev, st_order = build_layer_paths(
+            scan_type, depth, side, video_frames=video_frames, seed=path_seed)
+        parallel_perms = (parallel_scan_perms(scan_type, side)
+                          if scan_type.startswith("parallelN") else None)
         self.blocks = nn.ModuleList([
             ZigMaBlock(embed_dim, dict(scan_type=scan_type, perm=paths[i],
                                        perm_rev=paths_rev[i],
+                                       video_frames=video_frames,
+                                       st=None if st_order is None
+                                       else st_order[i],
+                                       parallel_perms=parallel_perms,
                                        scan_backend=scan_backend, **ssm_cfg),
                        rms_norm=rms_norm, norm_epsilon=norm_epsilon,
                        residual_in_fp32=residual_in_fp32, n_layer=depth,
@@ -227,24 +247,27 @@ class ZigMa(nn.Module):
                 self.y_embedder.reset_parameters(generator)
             if self.use_pe == 2:
                 self.pos_embed.zero_()
+            if self.video_frames > 0 and self.tpe:
+                self.temporal_pos_embedding.zero_()
 
     def forward(self, x, t, y=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        """x (B, C, H, W), t (B,) in [0, 1], y (B,) labels or None.
-        ``train`` turns on stochastic depth, whose keep masks come from
-        ``generator`` (the default generator when None)."""
-        if train and self.num_classes > 0 and self.class_dropout_prob > 0:
-            raise NotImplementedError(
-                "the class-label drop under training (LabelEmbedder's CFG "
-                "drop) lands in a later slice of the port")
+        """x (B, C, H, W) or (B, T, C, H, W), t (B,) in [0, 1], y (B,)
+        labels or None.  ``train`` turns on stochastic depth and the label
+        drop, whose draws come from ``generator`` (the default generator
+        when None)."""
         h = self.x_embedder(x)
+        B, L, E = h.shape
         c = self.t_embedder((t * 1000.0).float())
         if self.num_classes > 0:
-            c = c + self.y_embedder(y)
+            c = c + self.y_embedder(y, train=train, generator=generator)
         if self.use_pe == 1:
             h = h + self.pe_table.to(self.dtype)[None]
         elif self.use_pe == 2:
             h = h + self.pos_embed.to(self.dtype)
+        if self.video_frames > 0 and self.tpe:
+            tpe = self.temporal_pos_embedding.to(self.dtype)[:, :, None]
+            h = (h.reshape(B, self.video_frames, -1, E) + tpe).reshape(B, L, E)
         drops = [None] * (self.depth + 1)
         if train and self.drop_path_rate > 0:
             # every mask before the stack: a remat recompute must see the same
@@ -267,7 +290,46 @@ class ZigMa(nn.Module):
                      kind="rms" if self.rms_norm else "layer",
                      eps=self.norm_epsilon, prenorm=False,
                      residual_in_fp32=self.residual_in_fp32)
-        return self._unpatchify(self.final_layer(h))
+        h = self.final_layer(h)
+        if self.video_frames > 0:
+            return self._unpatchify_video(h)
+        return self._unpatchify(h)
+
+    def forward_with_cfg(self, x, t, y, cfg_scale: float, y_null=None,
+                         cfg_channels: Optional[int] = None):
+        """Classifier-free guidance: cond and uncond as one doubled batch,
+        ``uncond + cfg_scale * (cond - uncond)``; with ``cfg_channels`` only
+        the first channels are guided, the rest stay conditional.  y_null
+        defaults to the null class for labels (which needs the null row,
+        ``class_dropout_prob > 0``) and to zeros for float conditioning."""
+        if y_null is None:
+            if self.num_classes > 0 and not y.is_floating_point():
+                if self.class_dropout_prob <= 0:
+                    raise ValueError(
+                        "forward_with_cfg needs a null-class embedding row: "
+                        "the model was built with class_dropout_prob <= 0, "
+                        "so label index num_classes does not exist; pass "
+                        "y_null explicitly or train with dropout_prob > 0")
+                y_null = torch.full_like(y, self.num_classes)
+            else:
+                y_null = torch.zeros_like(y)
+        out = self(torch.cat([x, x]), torch.cat([t, t]), torch.cat([y, y_null]))
+        cond, uncond = out.chunk(2)
+        guided = uncond + cfg_scale * (cond - uncond)
+        # the channel axis is -3 for images (B, C, H, W) and video
+        # (B, T, C, H, W) alike
+        if cfg_channels is not None and cfg_channels < out.shape[-3]:
+            guided = torch.cat([guided[..., :cfg_channels, :, :],
+                                cond[..., cfg_channels:, :, :]], dim=-3)
+        return guided
+
+    def _unpatchify_video(self, x):
+        """(B, T*L, p*p*C) -> (B, T, C, H, W)."""
+        c, p, T = self.in_channels, self.patch_size, self.video_frames
+        hw = int((x.shape[1] // T) ** 0.5)
+        x = x.reshape(x.shape[0], T, hw, hw, p, p, c)
+        x = torch.einsum("nthwpqc->ntchpwq", x)
+        return x.reshape(x.shape[0], T, c, hw * p, hw * p)
 
     def _unpatchify(self, x):
         """(B, L, p*p*C) -> (B, C, H, W)."""

@@ -1,8 +1,10 @@
 from zigma_tpu_torch.ops.paths import (
     build_layer_paths,
     hilbert_path,
+    parallel_scan_perms,
     random_paths,
     reverse_permutation,
+    video_time_paths,
     zigzag_path,
 )
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
@@ -16,8 +18,10 @@ from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
 __all__ = [
     "build_layer_paths",
     "hilbert_path",
+    "parallel_scan_perms",
     "random_paths",
     "reverse_permutation",
+    "video_time_paths",
     "zigzag_path",
     "add_norm",
     "layer_norm",

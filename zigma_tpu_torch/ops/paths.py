@@ -13,8 +13,11 @@ Conventions (those of the reference, for checkpoint parity):
   ("gilbert") curve; the reference flattens the curve-index matrix, so these
   follow the inverse convention, ``path[cell] = scan step of that cell``.
   Each path is paired with its own inverse at the use site.
-
-Video temporal paths and the parallelN tables are a later slice.
+- Video models tile an 's'/'t' pattern over depth: spatial layers take the
+  zigzag paths in turn, temporal layers alternate the forward and reversed
+  frame orders.  A temporal layer's paired "inverse" is the *other* frame
+  order (the reference's pairing, kept for checkpoint parity), so there
+  perm and perm_rev are not inverses of each other.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ __all__ = [
     "gilbert_order",
     "random_paths",
     "reverse_permutation",
+    "video_time_paths",
     "build_layer_paths",
+    "parallel_scan_perms",
 ]
 
 
@@ -156,18 +161,29 @@ def random_paths(N: int, num: int, seed: int = 0) -> list[np.ndarray]:
     return [rng.permutation(N * N).astype(np.int64) for _ in range(num)]
 
 
-def build_layer_paths(scan_type: str, depth: int, patch_side: int,
-                      seed: int = 0):
-    """Per-layer permutation tables for an image ZigMa stack.
+def video_time_paths(T: int) -> tuple[np.ndarray, np.ndarray]:
+    """Forward and reversed frame orders of the temporal video layers."""
+    fwd = np.arange(T, dtype=np.int64)
+    return fwd, fwd[::-1].copy()
 
-    Returns ``(paths, paths_rev)``: ``paths[i]`` is applied before layer
-    ``i``'s scan and ``paths_rev[i]`` after it; both are None for v1/v2.
+
+def build_layer_paths(scan_type: str, depth: int, patch_side: int,
+                      video_frames: int = 0, seed: int = 0):
+    """Per-layer permutation tables for a ZigMa stack.
+
+    Returns ``(paths, paths_rev, st_order)``: ``paths[i]`` is applied before
+    layer ``i``'s scan and ``paths_rev[i]`` after it (both None for v1, v2
+    and parallelN, whose branches carry their own paths,
+    ``parallel_scan_perms``); ``st_order`` is None for image models, else
+    the per-layer string of 's' / 't'.
     ``zigzagN{k}`` / ``hilbertN{k}`` / ``randomN{k}``: layer i uses path
-    ``i mod k``.  Video (``zzvideo_*``/``video_*``) and ``parallelN`` scans
-    are a later slice of the port and raise.
+    ``i mod k``.  ``zzvideo_{pattern}`` / ``video_{pattern}``: the pattern
+    tiled over depth; the j-th spatial layer takes zigzag path ``j mod 8``,
+    the j-th temporal layer the forward frame order for even j, the
+    reversed one for odd j, each paired with the other order.
     """
-    if scan_type in ("v1", "v2"):
-        return [None] * depth, [None] * depth
+    if scan_type in ("v1", "v2") or scan_type.startswith("parallelN"):
+        return [None] * depth, [None] * depth, None
     if scan_type.startswith(("zigzagN", "hilbertN", "randomN")):
         if scan_type.startswith("zigzagN"):
             k = int(scan_type[len("zigzagN"):])
@@ -183,9 +199,37 @@ def build_layer_paths(scan_type: str, depth: int, patch_side: int,
         base_rev = [reverse_permutation(p) for p in base]
         paths = [base[i % len(base)] for i in range(depth)]
         paths_rev = [base_rev[i % len(base)] for i in range(depth)]
-        return paths, paths_rev
-    if scan_type.startswith(("parallelN", "zzvideo_", "video_")):
-        raise NotImplementedError(
-            f"scan_type {scan_type!r} lands in a later slice of the port "
-            f"(this slice: v1, v2, zigzagN, hilbertN, randomN)")
+        return paths, paths_rev, None
+    if scan_type.startswith(("zzvideo_", "video_")):
+        pattern = scan_type.split("_", 1)[1]
+        if not pattern or set(pattern) - {"s", "t"}:
+            raise ValueError(f"video scan pattern must be 's'/'t', got "
+                             f"{pattern!r}")
+        if video_frames <= 0:
+            raise ValueError("video scan types require video_frames > 0")
+        st_order = (pattern * depth)[:depth]
+        spatial = zigzag_path(patch_side)
+        spatial_rev = [reverse_permutation(p) for p in spatial]
+        t_fwd, t_bwd = video_time_paths(video_frames)
+        paths, paths_rev = [], []
+        n_s = n_t = 0
+        for ch in st_order:
+            if ch == "s":
+                paths.append(spatial[n_s % 8])
+                paths_rev.append(spatial_rev[n_s % 8])
+                n_s += 1
+            else:  # the other frame order as the pair, not the inverse
+                paths.append(t_fwd if n_t % 2 == 0 else t_bwd)
+                paths_rev.append(t_bwd if n_t % 2 == 0 else t_fwd)
+                n_t += 1
+        return paths, paths_rev, st_order
     raise ValueError(f"unknown scan_type: {scan_type!r}")
+
+
+def parallel_scan_perms(scan_type: str, patch_side: int) -> tuple:
+    """``(perm, perm_rev)`` pairs of a ``parallelN{k}`` mixer's k extra
+    branches: branch i scans zigzag path ``i mod 8``."""
+    k = int(scan_type[len("parallelN"):])
+    base = zigzag_path(patch_side)
+    return tuple((base[i % 8], reverse_permutation(base[i % 8]))
+                 for i in range(k))

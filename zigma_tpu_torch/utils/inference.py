@@ -9,7 +9,7 @@ dtype, so the model computes the same values as before.
 
 Kept float32, as in the JAX package (and the reference's CUDA dtypes):
 A_log, D, the dt_proj bias (consumed by the fp32 scan), norm weights and
-biases, pos_embed, and the embedders (timestep / label / patch), which feed
+biases, pos_embed, temporal_pos_embedding, and the embedders (timestep / label / patch), which feed
 the conditioning path.
 
 The rule table is exhaustive: a float32 parameter it does not know raises
@@ -27,17 +27,19 @@ __all__ = ["cast_for_inference", "inference_dtype_rule"]
 
 _KEEP = (
     r"^(x_embedder|t_embedder|y_embedder)\.",
-    r"^pos_embed$",
+    r"^(pos_embed|temporal_pos_embedding)$",
     r"(^|\.)(norm|norm_f)\.(weight|bias)$",
     r"\.mixer\.(A|A_b)_log$",
+    r"\.mixer\.A_b_log_list\.\d+$",
     r"\.mixer\.(D|D_b)$",
-    r"\.mixer\.dt_proj(_b)?\.bias$",
+    r"\.mixer\.D_b_list\.\d+$",
+    r"\.mixer\.dt_proj(_b|_b_list\.\d+)?\.bias$",
 )
 _CAST = (
     r"\.mixer\.(in_proj|out_proj)\.(weight|bias)$",
-    r"\.mixer\.(conv1d|conv1d_b)\.(weight|bias)$",
-    r"\.mixer\.(x_proj|x_proj_b)\.weight$",
-    r"\.mixer\.dt_proj(_b)?\.weight$",
+    r"\.mixer\.(conv1d|conv1d_b|conv1d_b_list\.\d+)\.(weight|bias)$",
+    r"\.mixer\.(x_proj|x_proj_b|x_proj_b_list\.\d+)\.weight$",
+    r"\.mixer\.dt_proj(_b|_b_list\.\d+)?\.weight$",
     r"\.adaLN_modulation\.1\.(weight|bias)$",
     r"^final_layer\.linear\.(weight|bias)$",
 )

@@ -1,7 +1,8 @@
 """Logging and metric sinks (wandb optional).
 
 Own copy of ``zigma_tpu/utils/logging_utils.py``'s ``create_logger``, the
-JSONL part of ``MetricLogger`` and ``array_to_image_grid``: every record
+JSONL part of ``MetricLogger``, ``array_to_image_grid`` and
+``write_video_grid``: every record
 lands in ``{run_dir}/metrics.jsonl``; wandb mirrors it only when asked for
 and installed.  The port runs one process, so there is no rank gate.
 """
@@ -16,7 +17,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["create_logger", "MetricLogger", "array_to_image_grid"]
+__all__ = ["create_logger", "MetricLogger", "array_to_image_grid",
+           "write_video_grid"]
 
 
 def create_logger(log_dir: Optional[str] = None,
@@ -89,3 +91,19 @@ def array_to_image_grid(x: np.ndarray, pad: int = 2) -> np.ndarray:
         grid[r * (H + pad):r * (H + pad) + H,
              c * (W + pad):c * (W + pad) + W] = img
     return (grid * 255).astype(np.uint8)
+
+
+def write_video_grid(videos: np.ndarray, path: str, fps: int = 4) -> str:
+    """(B, T, C, H, W) in [-1, 1] -> one animated GIF whose frame t is the
+    grid of the B samples at time t (PIL).  Returns ``path``."""
+    from PIL import Image
+
+    v = np.asarray(videos)
+    if v.ndim != 5:
+        raise ValueError(f"expected (B, T, C, H, W) videos, got {v.shape}")
+    frames = [Image.fromarray(array_to_image_grid(v[:, t]))
+              for t in range(v.shape[1])]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    frames[0].save(path, save_all=True, append_images=frames[1:],
+                   duration=max(int(1000 / fps), 1), loop=0)
+    return path
