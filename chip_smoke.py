@@ -73,9 +73,35 @@ Phases, each of which fails loudly (non-zero exit, no result line):
                  ``.npy`` a batch and a ``.gif`` a video;
 14. video grad check -- a flagship-width depth-3 (s, s, t) fp32 video model:
                  gradients through K1/K2 against the plain versions';
-15. profile   -- the device time of one flagship forward, one flagship
-                 training step, one video training step and one guided
-                 video forward, by kind (torch.profiler).
+15. repairs   -- the CUDA scan without delta_bias, with A a non-contiguous
+                 view and A and D in bf16 (K1 without a gradient, K1 and K2
+                 under autograd), and at 65537 sequences, past the grid's
+                 65535 (K1, and K2 bit-equal), against the plain versions;
+16. 1024^2 kernels -- K1 at (1, 4096, 1536, 16) and (1, 16384, 1536, 16)
+                 against the plain version, its time beside the bound and
+                 the blocks it launches;
+17. text train -- ``cli.train`` on the flagship with synthetic 77 x 768
+                 caption features (cross-attention in every block), batch
+                 16, 8 steps: K1 48 and K2 24 launches a step; strict load;
+18. text sample -- the text model guided (cfg 4) against null features with
+                 random caption features, 50-step Euler, 2 batches of 16: K1
+                 24 x 49 launches a batch;
+19. text grad check -- a flagship-width depth-2 fp32 text model with use_pe
+                 3: gradients through K1/K2 against the plain versions';
+20. ssm2 train / sample -- ``zigzag8_b1_pe2_ssm2`` (Mamba-2 / SSD mixers)
+                 through ``cli.train`` (batch 16, 8 steps) and ``cli.sample``
+                 (2 batches of 16): no K1, K2 or plain-scan call;
+21. SSD truth -- the chunked SSD at (16, 1024, 24 heads of 64, d_state 64),
+                 fp32 and bf16, forward and gradients, against a float64 run
+                 of the sequential form; its forward and forward + backward
+                 times;
+22. 1024^2 sample -- ``cli.sample`` at ``s1024_zigzag8_b2`` (patch 2, 4096
+                 tokens) and at patch 1 (16384 tokens), batch 1, 50-step
+                 Euler: K1 24 x 49 launches a batch;
+23. profile   -- the device time of one flagship forward, one flagship
+                 training step, one video training step, one guided video
+                 forward, one text training step and one ssm2 training
+                 step, by kind (torch.profiler).
 
 Every count is set to 0 just before its path runs and read just after; the
 plain versions must run 0 times on every path.
@@ -170,6 +196,34 @@ VIDEO_BATCH = 4
 # (16 frames x 4 videos)
 VIDEO_SHAPES = {"temporal": dict(batch=1024, L=16, D=1536, N=16),
                 "spatial": dict(batch=64, L=256, D=1536, N=16)}
+# the text-to-image data configs' caption features (configs/data/coco.yaml,
+# celebamm*.yaml: 77 CLIP tokens of 768), synthetic, on the flagship model
+TEXT_ARGS = ["model=zigzag8_b1_pe2", "data=synthetic", "data.has_text=true",
+             "data.d_context=768", "data.n_context_token=77"]
+N_CTX, D_CTX = 77, 768
+# the Mamba-2 / SSD flagship (configs/model/zigzag8_b1_pe2_ssm2.yaml)
+SSM2_ARGS = ["model=zigzag8_b1_pe2_ssm2", "data=synthetic"]
+# its SSD scan: batch 16 x 1024 tokens, 24 heads of 64, d_state 64
+SSD_SHAPE = dict(batch=16, L=1024, H=24, P=64, N=64)
+# the chunked SSD against a float64 run of the sequential form, per output
+# and gradient, as max |err| / max |truth|.  fp32: at most this multiple of
+# the plain fp32 sequential form's error (at least FP32_EPS).  The chunked
+# form takes differences of fp32 cumulative log-decays over a 128-token
+# chunk, which lose digits the step-by-step product keeps: the first run on
+# the H100 (H100 80GB HBM3, 700 W) read 1.0-28.1x at SSD_SHAPE, worst on
+# the dt bias's gradient, 8.5x on y, each near 1e-6 of max |truth|; a
+# float32 contraction lowered to TF32 or bf16 would err by about 2^-11 to
+# 2^-8 of its values, hundreds of times the limit.  bf16: the chunked form
+# rounds its inputs and its Y contractions to bf16 (as the JAX package
+# does), so its error is held to this many bf16 unit roundoffs (2^-8) of
+# max |truth|; the same run read 0.48-1.58
+TOL_SSD_FP32_MULT = 64.0
+TOL_SSD_BF16_ULPS = 4.0
+BF16_EPS = 2.0 ** -8
+# the 1024^2 sampling cells of bench.py: 128x128 latents at batch 1, patch
+# 2 (configs/model/s1024_zigzag8_b2.yaml, 4096 tokens) and patch 1 (16384)
+S1024 = {"p2": ["model=s1024_zigzag8_b2"],
+         "p1": ["model=s1024_zigzag8_b2", "model.params.patch_size=1"]}
 
 
 def fail(msg):
@@ -896,14 +950,17 @@ def grad_check_phase(gen, what, x_shape, **model_kw):
     from zigma_tpu_torch.train import LATENT_SCALE, make_diffusion_loss_fn
     from zigma_tpu_torch.transport import create_transport
 
-    model = ZigMa(in_channels=4, embed_dim=768, use_pe=2,
-                  use_checkpoint=True, device="cuda", generator=gen,
-                  **model_kw)
+    model_kw.setdefault("use_pe", 2)
+    model = ZigMa(in_channels=4, embed_dim=768, use_checkpoint=True,
+                  device="cuda", generator=gen, **model_kw)
     with torch.no_grad():  # off the DiT zero-init, so every gate is open
         for p in model.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
     batch = {"x": torch.randn(x_shape, generator=gen, device="cuda")}
-    if model.num_classes > 0:
+    if model.has_text:
+        batch["y"] = torch.randn(x_shape[0], N_CTX, model.d_context,
+                                 generator=gen, device="cuda")
+    elif model.num_classes > 0:
         batch["y"] = torch.randint(0, model.num_classes, x_shape[:1],
                                    generator=gen, device="cuda")
     loss_fn = make_diffusion_loss_fn(model, create_transport(),
@@ -1105,79 +1162,12 @@ def likelihood_phase(ckpt, tmp):
     return dict(k1=k1, k2=k2, logp=[float(v) for v in logp])
 
 
-def video_train_phase(tmp):
-    """``cli.train`` on the video ZigMa 3d_zigzag8sst_b2 (UCF101's shapes:
-    16 frames of 32x32x4 latents, 101 classes with the label drop 0.1),
-    synthetic data, batch 4 (UCF101's 20 cut for time), 8 steps: K1 48 and
-    K2 24 launches a step; the checkpoint loads into the sampler's model
-    with strict=True."""
-    import torch
-    from zigma_tpu_torch.cli import sample as sample_cli
-    from zigma_tpu_torch.cli import train as train_cli
-
-    torch.cuda.reset_peak_memory_stats()
-    held_gb = torch.cuda.memory_allocated() / 1e9  # by earlier phases
-    reset_counts()
-    t0 = time.perf_counter()
-    res = train_cli.main([*VIDEO_ARGS, f"data.batch_size={VIDEO_BATCH}",
-                          f"data.train_steps={TRAIN_STEPS}", "log_every=1",
-                          f"results_dir={tmp}"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1, k2, p1, p2 = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
-                                 VIDEO_ARGS)
-    fresh = sample_cli.build_model(cfg, device="cuda")
-    fresh.load_state_dict(sample_cli.load_state_dict(res["checkpoint"]),
-                          strict=True)
-    del fresh
-    model = res["state"].model
-    losses = [r["loss"] for r in res["records"]]
-    print(f"video train CLI: {len(losses)} steps in {wall:.2f} s (model "
-          f"build included); {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
-          f"params, dtype {model.dtype}, remat {model.use_checkpoint}, "
-          f"{model.video_frames} frames, {model.num_classes} classes, label "
-          f"drop {model.class_dropout_prob}; losses "
-          f"{[round(v, 4) for v in losses]}; K1 {k1}, K2 {k2} launches "
-          f"(expected {2 * DEPTH * TRAIN_STEPS} / {DEPTH * TRAIN_STEPS}); plain "
-          f"{(p1, p2)}; EMA loaded with strict=True into the sampler's model",
-          flush=True)
-    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        fail(f"video training losses {losses}")
-    if (k1, k2, p1, p2) != (2 * DEPTH * TRAIN_STEPS, DEPTH * TRAIN_STEPS,
-                            0, 0):
-        fail(f"video training: K1 / K2 / plain {(k1, k2, p1, p2)} in "
-             f"{TRAIN_STEPS} steps, expected {2 * DEPTH} / {DEPTH} / 0 a "
-             f"step")
-    steady = [1.0 / r["steps_per_sec"] for r in res["records"][1:]]
-    steps_s = len(steady) / sum(steady)
-    print(f"video training, batch {VIDEO_BATCH}: {steps_s:.4f} steps/s, "
-          f"{steps_s * VIDEO_BATCH:.3f} videos/s (steady steps 2-"
-          f"{TRAIN_STEPS}, range {min(steady):.4f}-{max(steady):.4f} s; first "
-          f"step {1.0 / res['records'][0]['steps_per_sec']:.3f} s); peak "
-          f"device memory {peak_gb:.2f} GB, of which {held_gb:.2f} GB held "
-          f"by earlier phases before the run", flush=True)
-    return res["state"], res["checkpoint"], dict(
-        steps_per_s=steps_s, videos_per_s=steps_s * VIDEO_BATCH,
-        peak_gb=peak_gb, held_gb=held_gb, k1=k1, k2=k2)
-
-
 def video_sample_phase(gen, ckpt, tmp):
     """``cli.sample`` from the video checkpoint, its weights perturbed by
     0.02 so the (trained-from-zero) gates are open, with classifier-free
     guidance 4 (one doubled batch a call), 50-step Euler, 2 batches of 4:
     K1 launched 24 x 49 times a batch; a .npy a batch and a .gif a video."""
-    import torch
-    from zigma_tpu_torch.cli import sample as sample_cli
-
-    sd = sample_cli.load_state_dict(ckpt)
-    with torch.no_grad():
-        sd = {k: v + 0.02 * torch.randn(v.shape, generator=gen,
-                                        device="cuda").to(v.device)
-              for k, v in sd.items()}
-    vckpt = os.path.join(tmp, "video.pt")
-    torch.save({"ema": sd}, vckpt)
+    vckpt = perturbed_ckpt(gen, ckpt, os.path.join(tmp, "video.pt"))
     res, calls, k1, k2 = run_sample_cli("video sample CLI (cfg 4)", [
         f"ckpt={vckpt}", *VIDEO_ARGS, "cfg_scale=4", "sample_mode=ODE",
         "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
@@ -1199,10 +1189,355 @@ def video_sample_phase(gen, ckpt, tmp):
     return vckpt, dict(videos_per_s=videos_s, k1=k1)
 
 
+def repairs_phase(gen):
+    """The two repaired faults of the CUDA scan.  (a) No delta_bias, A a
+    non-contiguous view in bf16, D in bf16: K1 without a gradient and K1/K2
+    under autograd against the plain versions on the same values.  (b)
+    65537 sequences, past the grid's 65535: K1 and K2 (one wrapper call
+    each, launched on slices of the batch) against the plain versions, K2
+    bit-equal over two calls."""
+    import torch
+    from zigma_tpu_torch.ops.selective_scan import selective_scan
+    f, bf = torch.float32, torch.bfloat16
+    for dname, dtype in (("fp32", f), ("bf16", bf)):
+        d = scan_inputs(gen, 2, 1024, 1536, 16, dtype)
+        A = d["A"].t().contiguous().t().to(bf)  # (1536, 16), strides (1, 1536)
+        Dk = d["Dskip"].to(bf)
+        ulp = BF16_ULP if dtype == bf else 0.0
+        reset_counts()
+        with torch.no_grad():
+            got = selective_scan(d["u"], d["delta"], A, d["B"], d["C"], Dk,
+                                 d["z"], None, delta_softplus=True)
+            ref = selective_scan(d["u"], d["delta"], A, d["B"], d["C"], Dk,
+                                 d["z"], None, delta_softplus=True,
+                                 backend="ref")
+        torch.cuda.synchronize()
+        worst = [("y no-grad", excess(got, ref, ulp))]
+        if read_counts()[:2] != (1, 0):
+            fail(f"no-bias scan: K1 / K2 launches {read_counts()[:2]}, "
+                 f"expected 1 / 0")
+        gy = torch.randn(got.shape, generator=gen, device="cuda")
+        grads = []
+        for backend in ("auto", "ref"):
+            ins = {k: v.detach().clone().requires_grad_()
+                   for k, v in dict(u=d["u"], delta=d["delta"], A=A, B=d["B"],
+                                    C=d["C"], D=Dk, z=d["z"]).items()}
+            out = selective_scan(ins["u"], ins["delta"], ins["A"], ins["B"],
+                                 ins["C"], ins["D"], ins["z"], None,
+                                 delta_softplus=True, backend=backend)
+            (out.float() * gy).sum().backward()
+            grads.append((out.detach(), {k: v.grad for k, v in ins.items()}))
+        torch.cuda.synchronize()
+        (ok_, gk), (or_, gr) = grads
+        worst.append(("y autograd", excess(ok_, or_, ulp)))
+        for k in gr:
+            if gk[k].dtype != gr[k].dtype or gk[k].dtype != ins[k].dtype:
+                fail(f"no-bias scan: d{k} {gk[k].dtype} / {gr[k].dtype}, "
+                     f"input {ins[k].dtype}")
+            worst.append((f"d{k}", excess(gk[k], gr[k], BF16_ULP
+                                           if gk[k].dtype == bf else 0.0)))
+        k1, k2, p1, p2 = read_counts()
+        if (k1, k2) != (2, 1):
+            fail(f"no-bias scan: K1 / K2 launches {(k1, k2)}, expected 2 / 1")
+        print(f"no delta_bias, A bf16 non-contiguous, D bf16, {dname} inputs "
+              f"(2, 1024, 1536, 16), kernel vs plain, excess over one bf16 ulp "
+              f"of max |ref|: " + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+              + f" (limits {TOL_FP32} y, {TOL_BWD} gradients); K1 {k1}, K2 "
+              f"{k2} launches", flush=True)
+        for n, e in worst:
+            if not e <= (TOL_FP32 if n.startswith("y") else TOL_BWD):
+                fail(f"no-bias scan {dname}: {n} excess {e}")
+    B_ = 65537
+    reset_counts()
+    check_kernel_case(f"K1 ({B_}, 16, 128, 16) bf16 fused", gen, B_, 16, 128,
+                      16, bf, True, False)
+    check_bwd_case(f"K2 ({B_}, 16, 128, 16) bf16 fused", gen, B_, 16, 128, 16,
+                   bf, True)
+    k1, k2, _, _ = read_counts()
+    print(f"{B_} sequences: K1 {k1}, K2 {k2} wrapper launches (one K1 call "
+          f"in each case, two K2 calls)", flush=True)
+    if (k1, k2) != (2, 2):
+        fail(f"{B_} sequences: K1 / K2 counted {(k1, k2)}, expected 2 / 2")
+
+
+def s1024_kernel_phase(gen):
+    """K1 at the 1024^2 sampling cells' shapes, batch 1, against the plain
+    version; its time beside the bound and the blocks it launches."""
+    import torch
+    from zigma_tpu_torch.ops.scan_cuda import (selective_scan_fwd_cuda,
+                                               selective_scan_fwd_launch_info)
+    from zigma_tpu_torch.ops.selective_scan import selective_scan_ref
+    bf = torch.bfloat16
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {}
+    for tag, L in (("p2", 4096), ("p1", 16384)):
+        shp = (1, L, 1536, 16)
+        d, errs = check_kernel_case(f"K1 1024^2 {tag} {shp} bf16 fused", gen,
+                                    *shp, bf, True, False)
+        args = (d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"],
+                d["Dskip"], d["z"])
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: selective_scan_fwd_cuda(
+                *args, return_carries=False), reps=10)
+            plain_ms = cuda_ms(lambda: selective_scan_ref(
+                d["u"], d["delta"], d["A"], d["B"], d["C"], d["Dskip"],
+                d["z"], d["bias"], True), reps=1, groups=3)
+        info = selective_scan_fwd_launch_info(16, L, bf)
+        blocks = -(-1536 // info["channels_per_block"])
+        bound_ms, bound_by, how = least_time(*k1_work(*shp, 2))
+        times[f"sample_1024_{tag} {shp}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            blocks=blocks, max_abs_err=errs["y"])
+        print(f"K1 1024^2 {tag} {shp} bf16 fused: {ms:.4f} ms; plain "
+              f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({how}); {ms / bound_ms:.2f}x the bound; {blocks} blocks on "
+              f"{n_sms} SMs", flush=True)
+    return times
+
+
+def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images"):
+    """``cli.train`` with ``args`` at ``batch``, TRAIN_STEPS steps, the
+    counts set to 0 just before and read just after: every loss finite,
+    exactly ``k1_step`` / ``k2_step`` K1 / K2 launches a step and the plain
+    versions never; the checkpoint's EMA loads with strict=True into the
+    sampler's model.  Returns (state, checkpoint, numbers); ``unit`` names
+    a sample (images, videos) in the printed rate."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli import train as train_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # by earlier phases
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train_cli.main([*args, f"data.batch_size={batch}",
+                          f"data.train_steps={TRAIN_STEPS}", "log_every=1",
+                          f"results_dir={tmp}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default", args)
+    fresh = sample_cli.build_model(cfg, device="cuda")
+    fresh.load_state_dict(sample_cli.load_state_dict(res["checkpoint"]),
+                          strict=True)
+    del fresh
+    model = res["state"].model
+    losses = [r["loss"] for r in res["records"]]
+    want = (k1_step * TRAIN_STEPS, k2_step * TRAIN_STEPS, 0, 0)
+    print(f"{what} train CLI: {len(losses)} steps in {wall:.2f} s (model "
+          f"build included); {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"params, dtype {model.dtype}, remat {model.use_checkpoint}; losses "
+          f"{[round(v, 4) for v in losses]}; K1, K2, plain scan, plain "
+          f"backward {counts} (expected {want}); EMA loaded with strict=True "
+          f"into the sampler's model", flush=True)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"{what} training losses {losses}")
+    if counts != want:
+        fail(f"{what} training: K1 / K2 / plain {counts}, expected {want}")
+    steady = [1.0 / r["steps_per_sec"] for r in res["records"][1:]]
+    steps_s = len(steady) / sum(steady)
+    print(f"{what} training, batch {batch}: {steps_s:.4f} steps/s, "
+          f"{steps_s * batch:.3f} {unit}/s (steady steps 2-{TRAIN_STEPS}, "
+          f"range {min(steady):.4f}-{max(steady):.4f} s; first step "
+          f"{1.0 / res['records'][0]['steps_per_sec']:.3f} s); peak device "
+          f"memory {peak_gb:.2f} GB, of which {held_gb:.2f} GB held by "
+          f"earlier phases before the run", flush=True)
+    return res["state"], res["checkpoint"], dict(
+        steps_per_s=steps_s, samples_per_s=steps_s * batch, peak_gb=peak_gb,
+        held_gb=held_gb, k1=counts[0], k2=counts[1])
+
+
+def perturbed_ckpt(gen, ckpt, path):
+    """``ckpt``'s EMA weights plus 0.02 of normal noise (so the gates a
+    short run trained from zero are open), saved as ``path``."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+    sd = sample_cli.load_state_dict(ckpt)
+    with torch.no_grad():
+        sd = {k: v + 0.02 * torch.randn(v.shape, generator=gen,
+                                        device="cuda").to(v.device)
+              for k, v in sd.items()}
+    torch.save({"ema": sd}, path)
+    return path
+
+
+def text_sample_phase(gen, ckpt):
+    """Guided sampling of the text model from ``ckpt`` (perturbed), cfg 4
+    against the null (zero) features, 50-step Euler, 2 batches of 16 with
+    random caption features: the sampler's model and the model API, as the
+    CLI's own path feeds zero features.  K1 launched 24 x 49 times a
+    batch."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.transport import Sampler, create_transport
+    from zigma_tpu_torch.utils.inference import cast_for_inference
+
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 TEXT_ARGS)
+    model = sample_cli.build_model(cfg, device="cuda")
+    model.load_state_dict(sample_cli.load_state_dict(ckpt))
+    cast_for_inference(model, model.dtype).eval().requires_grad_(False)
+    sample_fn = Sampler(create_transport()).sample_ode(
+        sampling_method="euler", num_steps=STEPS)
+    seconds = []
+    for _ in range(N_BATCHES):
+        z = torch.randn(BATCH, 4, 32, 32, generator=gen, device="cuda")
+        y = torch.randn(BATCH, N_CTX, D_CTX, generator=gen, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = sample_fn(z, lambda x, t: model.forward_with_cfg(
+                x, t, y, 4.0))[-1].float().cpu()
+        seconds.append(time.perf_counter() - t0)
+        counts = read_counts()
+        if counts != (DEPTH * (STEPS - 1), 0, 0, 0):
+            fail(f"text guided sampling: K1 / K2 / plain {counts}, expected "
+                 f"{DEPTH * (STEPS - 1)} K1 a batch and nothing else")
+        if not bool(torch.isfinite(out).all()):
+            fail("text guided sampling: non-finite samples")
+    img_s = BATCH / seconds[1]
+    print(f"text guided sampling, cfg 4, 50-step Euler, batch {BATCH} "
+          f"({2 * BATCH} under CFG), 77 x 768 caption features: "
+          f"{img_s:.4f} images/s (second batch; first {seconds[0]:.3f} s); "
+          f"K1 {counts[0]} launches a batch", flush=True)
+    return dict(images_per_s=img_s, k1=counts[0] * N_BATCHES)
+
+
+def ssd_truth_phase(gen):
+    """The chunked SSD on the card at the ssm2 flagship's scan shape, fp32
+    and bf16, with D, z and the dt bias, against a float64 run of the
+    sequential form; the same for the gradients of ``sum(y * w)``.  fp32:
+    at most TOL_SSD_FP32_MULT x the plain fp32 sequential form's error;
+    bf16: at most TOL_SSD_BF16_ULPS bf16 unit roundoffs.  Then the chunked
+    form's forward and forward-plus-backward times in bf16."""
+    import torch
+    from zigma_tpu_torch.ops.ssd import ssd_scan, ssd_scan_ref
+    b, L, H, P, N = SSD_SHAPE.values()
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    # the Mamba-2 init: A = -U[1, 16], dt bias the inverse softplus of a dt
+    # log-uniform in [0.001, 0.1]
+    dt0 = torch.exp(torch.rand(H, generator=gen, device="cuda")
+                    * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    base = dict(x=r(b, L, H, P), dt=0.5 * r(b, L, H),
+                A=-(1 + 15 * torch.rand(H, generator=gen, device="cuda")),
+                B=r(b, L, 1, N), C=r(b, L, 1, N), D=r(H), z=r(b, L, H, P),
+                dt_bias=dt0 + torch.log(-torch.expm1(-dt0)))
+    w = r(b, L, H, P)
+    names = ("x", "dt", "A", "B", "C", "D", "z", "dt_bias")
+    low = ("x", "dt", "B", "C", "z")  # in the compute dtype
+
+    def run(fn, ins):
+        ins = {k: v.detach().clone().requires_grad_() for k, v in ins.items()}
+        y = fn(**ins, dt_softplus=True)
+        (y.double() * w.double()).sum().backward()
+        return y.detach(), {k: ins[k].grad for k in names}
+
+    worst = {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        ins = {k: v.to(dtype) if k in low else v for k, v in base.items()}
+        y_c, g_c = run(ssd_scan, ins)
+        y_p, g_p = run(ssd_scan_ref, {k: v.float() for k, v in ins.items()})
+        y_t, g_t = run(ssd_scan_ref, {k: v.double() for k, v in ins.items()})
+        torch.cuda.synchronize()
+        parts = []
+        for what, c, p, t in [("y", y_c, y_p, y_t)] + [
+                (f"d{k}", g_c[k], g_p[k], g_t[k]) for k in names]:
+            scale = t.abs().max().item()
+            e_c = (c.double() - t).abs().max().item() / scale
+            e_p = (p.double() - t).abs().max().item() / scale
+            if dtype == torch.float32:
+                ratio, limit = e_c / max(e_p, FP32_EPS), TOL_SSD_FP32_MULT
+                parts.append(f"{what} {e_c:.2e}/{e_p:.2e} ({ratio:.2f}x)")
+            else:
+                ratio, limit = e_c / BF16_EPS, TOL_SSD_BF16_ULPS
+                parts.append(f"{what} {e_c:.2e} ({ratio:.2f} ulps)")
+            worst[dname] = max(worst.get(dname, (0.0, "")), (ratio, what))
+            if not ratio <= limit:
+                fail(f"SSD {dname}: {what} error against the f64 truth "
+                     f"{e_c:.3e} of max |truth|: {ratio:.2f} > {limit}")
+        print(f"SSD chunked {dname} {tuple(SSD_SHAPE.values())} vs f64 "
+              f"sequential, of max |truth| (fp32: chunked/plain fp32 "
+              f"sequential; bf16: in bf16 unit roundoffs): "
+              + "; ".join(parts), flush=True)
+        del y_c, g_c, y_p, g_p, y_t, g_t
+        torch.cuda.empty_cache()
+    ins = {k: v.to(torch.bfloat16) if k in low else v for k, v in base.items()}
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: ssd_scan(**ins, dt_softplus=True), reps=5)
+    grads_in = {k: v.detach().clone().requires_grad_() for k, v in ins.items()}
+    wb = w.to(torch.bfloat16)
+    fb_ms = cuda_ms(lambda: (ssd_scan(**grads_in, dt_softplus=True) * wb)
+                    .sum().backward(), reps=3)
+    print(f"SSD gate: fp32 at most {worst['fp32'][0]:.2f}x the plain fp32 "
+          f"version's error ({worst['fp32'][1]}; limit {TOL_SSD_FP32_MULT}), "
+          f"bf16 at most {worst['bf16'][0]:.2f} bf16 unit roundoffs "
+          f"({worst['bf16'][1]}; limit {TOL_SSD_BF16_ULPS}); chunked bf16 "
+          f"forward {fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms",
+          flush=True)
+    return dict(fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms,
+                fp32_ratio=worst["fp32"][0], bf16_ulps=worst["bf16"][0])
+
+
+def ssm2_sample_phase(gen, ckpt, tmp):
+    """``cli.sample`` of the ssm2 model from ``ckpt`` (perturbed), 50-step
+    Euler, 2 batches of 16: neither scan kernel nor the plain scans."""
+    path = perturbed_ckpt(gen, ckpt, os.path.join(tmp, "ssm2.pt"))
+    res, calls, k1, k2 = run_sample_cli("ssm2 sample CLI", [
+        f"ckpt={path}", *SSM2_ARGS, "sample_mode=ODE",
+        "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
+        f"offline_sample_local_bs={BATCH}",
+        f"num_fid_samples={N_BATCHES * BATCH}", f"sample_dir={tmp}"])
+    img_s = BATCH / res["batch_seconds"][1]
+    print(f"ssm2 50-step Euler, batch {BATCH}: {img_s:.4f} images/s (second "
+          f"batch; first {res['batch_seconds'][0]:.3f} s); K1 {k1}, K2 {k2}",
+          flush=True)
+    if (k1, k2) != (0, 0) or calls != N_BATCHES * (STEPS - 1):
+        fail(f"ssm2 sampling: K1 / K2 {(k1, k2)}, {calls} model calls")
+    return dict(images_per_s=img_s)
+
+
+def s1024_sample_phase(gen, tmp):
+    """``cli.sample`` at the 1024^2 cells (random weights, perturbed), batch
+    1, 50-step Euler, 2 batches: K1 24 x 49 launches a batch."""
+    import torch
+    from zigma_tpu_torch.cli import sample as sample_cli
+    out = {}
+    for tag, args in S1024.items():
+        cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                     args)
+        model = sample_cli.build_model(cfg, device="cuda", generator=gen)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen,
+                                          device="cuda"))
+        path = os.path.join(tmp, f"s1024_{tag}.pt")
+        torch.save({"ema": {k: v.cpu() for k, v in model.state_dict().items()}},
+                   path)
+        tokens = (128 // model.patch_size) ** 2
+        del model
+        res, calls, k1, k2 = run_sample_cli(f"1024^2 {tag} sample CLI", [
+            f"ckpt={path}", *args, "sample_mode=ODE",
+            "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
+            "offline_sample_local_bs=1", "num_fid_samples=2",
+            f"sample_dir={tmp}"])
+        img_s = 1.0 / res["batch_seconds"][1]
+        print(f"1024^2 {tag} ({tokens} tokens), 50-step Euler, batch 1: "
+              f"{img_s:.4f} images/s (second batch; first "
+              f"{res['batch_seconds'][0]:.3f} s); K1 {k1}", flush=True)
+        if k1 != 2 * DEPTH * (STEPS - 1) or k2 != 0:
+            fail(f"1024^2 {tag} sampling: K1 / K2 {(k1, k2)}, expected "
+                 f"{2 * DEPTH * (STEPS - 1)} / 0")
+        out[tag] = dict(images_per_s=img_s, k1=k1)
+    return out
+
+
 def _kind(key):
     k = key.lower()
     return ("K1 selective scan fwd" if "selective_scan_fwd" in k else
             "K2 selective scan bwd" if "selective_scan_bwd" in k else
+            "attention (SDPA)" if any(s in k for s in ("flash", "fmha",
+                                                       "attention")) else
             "GEMM" if any(s in k for s in ("gemm", "nvjet", "cutlass",
                                            "sm90_xmma")) else
             "gather (scan-path permutation)" if ("index" in k
@@ -1255,8 +1590,9 @@ def profile_phase(what, fn):
               f"{e.key[:90]}", flush=True)
 
 
-def train_step_fn(state, gen, x_shape, num_classes=-1):
-    """One training step of ``state`` on a fixed batch (for the profile)."""
+def train_step_fn(state, gen, x_shape, num_classes=-1, text=None):
+    """One training step of ``state`` on a fixed batch (for the profile):
+    class labels, or ``text`` = (tokens, width) caption features."""
     import torch
     from zigma_tpu_torch.train import (LATENT_SCALE, make_diffusion_loss_fn,
                                        train_step)
@@ -1267,6 +1603,9 @@ def train_step_fn(state, gen, x_shape, num_classes=-1):
     if num_classes > 0:
         batch["y"] = torch.randint(0, num_classes, x_shape[:1], generator=gen,
                                    device="cuda")
+    elif text is not None:
+        batch["y"] = torch.randn(x_shape[0], *text, generator=gen,
+                                 device="cuda")
     step_gen = torch.Generator(device="cuda").manual_seed(1)
     return lambda: train_step(state, loss_fn, batch, step_gen)["loss"].item()
 
@@ -1319,6 +1658,10 @@ def main():
     k2 = kernel_bwd_phase(gen)
     phase("kernels at the video shapes")
     kv = video_kernel_phase(gen)
+    phase("repairs: no delta_bias, cast A and D, 65537 sequences")
+    repairs_phase(gen)
+    phase("kernels at the 1024^2 sampling shapes")
+    k1_1024 = s1024_kernel_phase(gen)
     with tempfile.TemporaryDirectory() as tmp:
         phase("sample (main path of the serving slice)")
         model, x, t, e2e = main_path_phase(gen, tmp)
@@ -1335,7 +1678,8 @@ def main():
         phase("likelihood")
         lik = likelihood_phase(e2e["ckpt"], tmp)
         phase("video train (3d_zigzag8sst_b2)")
-        vstate, vckpt, vtr = video_train_phase(tmp)
+        vstate, vckpt, vtr = train_cli_phase(
+            "video", VIDEO_ARGS, VIDEO_BATCH, 2 * DEPTH, DEPTH, tmp, "videos")
         phase("video sample (3d_zigzag8sst_b2, cfg 4)")
         vckpt, vs = video_sample_phase(gen, vckpt, tmp)
         phase("video grad check")
@@ -1344,6 +1688,29 @@ def main():
                          patch_size=2, scan_type="zzvideo_sst",
                          video_frames=16, tpe=True, num_classes=101,
                          class_dropout_prob=0.1)
+        phase("text train (flagship with 77 x 768 caption features)")
+        tstate, tckpt, ttr = train_cli_phase(
+            "text", TEXT_ARGS, BATCH, 2 * DEPTH, DEPTH, tmp)
+        phase("text guided sample (cfg 4)")
+        ts = text_sample_phase(gen, perturbed_ckpt(
+            gen, tckpt, os.path.join(tmp, "text.pt")))
+        phase("text grad check (use_pe 3)")
+        grad_check_phase(gen, "flagship-width text depth 2, use_pe 3",
+                         (2, 4, 32, 32), depth=2, img_dim=32, patch_size=1,
+                         scan_type="zigzagN8", has_text=True,
+                         d_context=D_CTX, use_pe=3)
+        phase("ssm2 train (zigzag8_b1_pe2_ssm2)")
+        sstate, sckpt, s2tr = train_cli_phase("ssm2", SSM2_ARGS, BATCH, 0, 0,
+                                              tmp)
+        phase("ssm2 sample")
+        s2s = ssm2_sample_phase(gen, sckpt, tmp)
+        print(f"ssm2 paths: K1 {s2tr['k1']} / K2 {s2tr['k2']} launches in "
+              f"training, 0 / 0 in sampling; the plain scans never",
+              flush=True)
+        phase("SSD truth gate and times")
+        ssd = ssd_truth_phase(gen)
+        phase("1024^2 sampling (s1024_zigzag8_b2, patch 2 and 1)")
+        s1024 = s1024_sample_phase(gen, tmp)
         phase("profile")
 
         def forward():
@@ -1359,6 +1726,13 @@ def main():
                       train_step_fn(vstate, gen, (VIDEO_BATCH, 16, 4, 32, 32),
                                     101))
         del vstate
+        profile_phase(f"one text training step (batch {BATCH})",
+                      train_step_fn(tstate, gen, (BATCH, 4, 32, 32),
+                                    text=(N_CTX, D_CTX)))
+        del tstate
+        profile_phase(f"one ssm2 training step (batch {BATCH})",
+                      train_step_fn(sstate, gen, (BATCH, 4, 32, 32)))
+        del sstate
         vmodel, vx, vt, vy = guided_video_inputs(gen, vckpt)
 
         def guided():
@@ -1378,18 +1752,23 @@ def main():
                                "sample_sde": sde["k1"],
                                "likelihood": lik["k1"],
                                "video_train": vtr["k1"],
-                               "video_sample": vs["k1"]},
+                               "video_sample": vs["k1"],
+                               "text_train": ttr["k1"],
+                               "text_sample": ts["k1"],
+                               "sample_1024_p2": s1024["p2"]["k1"],
+                               "sample_1024_p1": s1024["p1"]["k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
-             video_shapes=kv["K1"]),
+             video_shapes=kv["K1"], shapes_1024=k1_1024),
         dict(name="selective_scan_bwd", route="cuda",
              source="zigma_tpu_torch/csrc/selective_scan_bwd.cu",
              replaces="zigma_tpu/ops/scan_pallas.py:418",
              launches=tr["k2"],
              launches_by_path={"train": tr["k2"], "likelihood": lik["k2"],
-                               "video_train": vtr["k2"]},
+                               "video_train": vtr["k2"],
+                               "text_train": ttr["k2"]},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
@@ -1401,9 +1780,19 @@ def main():
           f"({dp['accepted']} accepted, {dp['rejected']} rejected), "
           f"{dp['images_per_s']:.4f} images/s; SDE {sde['images_per_s']:.4f} "
           f"images/s; video training {vtr['steps_per_s']:.4f} steps/s, "
-          f"{vtr['videos_per_s']:.3f} videos/s, peak {vtr['peak_gb']:.2f} GB "
+          f"{vtr['samples_per_s']:.3f} videos/s, peak {vtr['peak_gb']:.2f} GB "
           f"({vtr['held_gb']:.2f} GB held before it); "
-          f"guided video sampling {vs['videos_per_s']:.4f} videos/s")
+          f"guided video sampling {vs['videos_per_s']:.4f} videos/s; text "
+          f"training {ttr['steps_per_s']:.4f} steps/s, peak "
+          f"{ttr['peak_gb']:.2f} GB ({ttr['held_gb']:.2f} GB held before "
+          f"it); text guided sampling {ts['images_per_s']:.4f} images/s; "
+          f"ssm2 training {s2tr['steps_per_s']:.4f} steps/s, peak "
+          f"{s2tr['peak_gb']:.2f} GB ({s2tr['held_gb']:.2f} GB held before "
+          f"it); ssm2 sampling {s2s['images_per_s']:.4f} images/s; SSD "
+          f"chunked bf16 forward {ssd['fwd_ms']:.3f} ms, forward + backward "
+          f"{ssd['fwd_bwd_ms']:.3f} ms; 1024^2 sampling "
+          f"{s1024['p2']['images_per_s']:.4f} (patch 2) and "
+          f"{s1024['p1']['images_per_s']:.4f} (patch 1) images/s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -398,23 +398,95 @@ def test_kernels_at_video_shapes(gen, dtype, batch, L):
 
 
 def test_batch_beyond_the_grid_limit_raises_before_launch(gen):
-    """65536 sequences (a guided batch of 128 videos' temporal layers) is
-    one past the kernels' gridDim.y: a ValueError naming the limit and the
-    fold, and no launch."""
-    B, L, D, N = scan_cuda.MAX_BATCH + 1, 1, 2, 1
-    d = _inputs(gen, B, L, D, N, torch.float32)
+    """65537 sequences, two past the kernels' gridDim.y limit (a guided
+    batch of 128 videos' temporal layers reaches 65536): one wrapper call
+    each, which launches on slices of the batch, and every output against
+    the plain version; K2 bit-equal over two calls."""
+    B, L, D, N = 65537, 4, 16, 4
+    d = _inputs(gen, B, L, D, N, torch.bfloat16)
+    d["gy"] = torch.randn(B, L, D, generator=gen, device="cuda").to(torch.bfloat16)
     before = (scan_cuda.selective_scan_fwd_cuda.launches,
               scan_cuda.selective_scan_bwd_cuda.launches)
-    with pytest.raises(ValueError, match="65535.*temporal layers"):
-        scan_cuda.selective_scan_fwd_cuda(d["u"], d["delta"], d["A"], d["B"],
-                                          d["C"], d["bias"])
-    carries = torch.zeros(B, 1, N, D, device="cuda")
-    with pytest.raises(ValueError, match="65535.*temporal layers"):
-        scan_cuda.selective_scan_bwd_cuda(d["u"], d["delta"], d["bias"],
-                                          d["A"], d["B"], d["C"], carries,
-                                          d["u"])
+    with torch.no_grad():
+        got = scan_cuda.selective_scan_fwd_cuda(
+            d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"], d["Dskip"],
+            d["z"])
+        ref = selective_scan_ref(d["u"], d["delta"], d["A"], d["B"], d["C"],
+                                 d["Dskip"], d["z"], d["bias"], True)
+        args = (d["u"], d["delta"], d["bias"], d["A"], d["B"], d["C"], got[1],
+                d["gy"], None, d["Dskip"], d["z"])
+        bgot = scan_cuda.selective_scan_bwd_cuda(*args)
+        again = scan_cuda.selective_scan_bwd_cuda(*args)
+        bref = selective_scan_bwd_ref(*args)
+    torch.cuda.synchronize()
     assert (scan_cuda.selective_scan_fwd_cuda.launches,
-            scan_cuda.selective_scan_bwd_cuda.launches) == before
+            scan_cuda.selective_scan_bwd_cuda.launches) == (before[0] + 1,
+                                                            before[1] + 2)
+    assert _rel(got[0], ref[0], BF16_ULP) <= TOL_FP32
+    assert _rel(got[1], ref[1]) <= TOL_FP32 and _rel(got[2], ref[2]) <= TOL_FP32
+    # the last slice's sequences were written, not left as allocated
+    assert _rel(got[2][-2:], ref[2][-2:]) <= TOL_FP32
+    _check_bwd(torch.bfloat16, True, bgot, again, bref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_without_bias_and_with_cast_A_D(gen, dtype):
+    """delta_bias None, A a transposed view in bf16, D in bf16: K1 without a
+    gradient, K1 and K2 under autograd, against the plain versions on the
+    same card (the fp32 values of the same A and D); no bias gradient, the
+    gradients of A and D in bf16."""
+    d = _inputs(gen, 2, 300, 96, 16, dtype)
+    A_bf = d["A"].t().contiguous().t().to(torch.bfloat16)  # (96, 16) view
+    D_bf = d["Dskip"].to(torch.bfloat16)
+    assert not A_bf.is_contiguous()
+    launches = scan_cuda.selective_scan_fwd_cuda.launches
+    with torch.no_grad():
+        got = selective_scan(d["u"], d["delta"], A_bf, d["B"], d["C"], D_bf,
+                             d["z"], None, delta_softplus=True)
+        ref = selective_scan(d["u"], d["delta"], A_bf, d["B"], d["C"], D_bf,
+                             d["z"], None, delta_softplus=True, backend="ref")
+    assert scan_cuda.selective_scan_fwd_cuda.launches == launches + 1
+    ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+    assert _rel(got, ref, ulp) <= TOL_FP32
+    grads = []
+    for backend in ("auto", "ref"):
+        u = d["u"].clone().requires_grad_()
+        A = A_bf.detach().clone().t().contiguous().t().requires_grad_()
+        Dv = D_bf.detach().clone().requires_grad_()
+        out = selective_scan(u, d["delta"], A, d["B"], d["C"], Dv, d["z"],
+                             None, delta_softplus=True, backend=backend)
+        assert out.grad_fn.apply(torch.ones_like(out))[5] is None
+        out.float().square().sum().backward()
+        grads.append((out.detach(), u.grad, A.grad, Dv.grad))
+    torch.cuda.synchronize()
+    for g, r in zip(*grads):
+        assert g.dtype == r.dtype
+        assert _rel(g, r, BF16_ULP if g.dtype == torch.bfloat16 else 0.0) <= TOL_FP32
+    assert grads[0][2].dtype == grads[0][3].dtype == torch.bfloat16
+
+
+def test_ssd_chunked_on_the_card_against_float64(gen):
+    """The chunked SSD in fp32 on the card (TF32 off) against the float64
+    sequential form: within chip_smoke.TOL_SSD_FP32_MULT of the fp32
+    sequential form's error (its first run here read 7.6x; TF32- or
+    bf16-class error would read thousands of times)."""
+    import chip_smoke
+    from zigma_tpu_torch.device import set_precision_flags
+    from zigma_tpu_torch.ops.ssd import ssd_scan, ssd_scan_ref
+    set_precision_flags()
+    b, L, H, P, N = 2, 300, 4, 64, 64
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    ins = dict(x=r(b, L, H, P), dt=0.5 * r(b, L, H), A=-torch.exp(0.5 * r(H)),
+               B=r(b, L, 1, N), C=r(b, L, 1, N), D=r(H), z=r(b, L, H, P),
+               dt_bias=0.1 * r(H))
+    truth = ssd_scan_ref(**{k: v.double() for k, v in ins.items()},
+                         dt_softplus=True)
+    plain = ssd_scan_ref(**ins, dt_softplus=True)
+    chunked = ssd_scan(**ins, dt_softplus=True)
+    e_p = _rel(plain, truth)
+    e_c = _rel(chunked, truth)
+    assert e_c <= chip_smoke.TOL_SSD_FP32_MULT * max(e_p, 2.0 ** -23), (e_c,
+                                                                       e_p)
 
 
 def test_tiny_video_model_kernels_match_plain(gen):
@@ -442,6 +514,64 @@ def test_tiny_video_model_kernels_match_plain(gen):
         with torch.inference_mode():
             fwd = model(batch["x"], torch.full((3,), 0.3, device="cuda"),
                         batch["y"])
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(batch, torch.Generator(device="cuda").manual_seed(3))
+        loss.backward()
+        results.append((fwd, loss.item(), {
+            n: p.grad.clone() for n, p in model.named_parameters()}))
+    (fk, loss_k, gk), (fr, loss_r, gr) = results
+    assert _rel(fk, fr) <= TOL_FP32
+    assert abs(loss_k - loss_r) <= TOL_FP32 * abs(loss_r)
+    for n in gr:
+        assert _rel(gk[n], gr[n]) <= TOL_FP32, n
+
+
+@pytest.mark.parametrize("kind", ["text_pe3", "ssm2"])
+def test_tiny_text_and_ssm2_models_on_the_card(gen, kind):
+    """A perturbed small-width text model (use_pe 3, cross-attention) with
+    remat: forward, loss and gradients through K1/K2 against the same
+    through the plain versions.  An ssm2 model launches neither kernel, and
+    its forward on the card matches the CPU's."""
+    from zigma_tpu_torch.device import set_precision_flags
+    from zigma_tpu_torch.train import make_diffusion_loss_fn
+    from zigma_tpu_torch.transport import create_transport
+
+    set_precision_flags()  # the patch-embed conv in fp32, not TF32
+    kw = (dict(has_text=True, d_context=48, use_pe=3) if kind == "text_pe3"
+          else dict(ssm_cfg=dict(ssm_version=2, d_state=16, headdim=32),
+                    use_pe=2))
+    model = ZigMa(in_channels=4, embed_dim=64, depth=2, img_dim=8,
+                  scan_type="zigzagN8", use_checkpoint=True, device="cuda",
+                  generator=gen, **kw)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    batch = {"x": torch.randn(3, 4, 8, 8, generator=gen, device="cuda")}
+    if kind == "text_pe3":
+        batch["y"] = torch.randn(3, 77, 48, generator=gen, device="cuda")
+    t = torch.full((3,), 0.3, device="cuda")
+    loss_fn = make_diffusion_loss_fn(model, create_transport())
+    if kind == "ssm2":
+        launches = (scan_cuda.selective_scan_fwd_cuda.launches,
+                    scan_cuda.selective_scan_bwd_cuda.launches)
+        with torch.inference_mode():
+            out = model(batch["x"], t)
+        cpu = ZigMa(in_channels=4, embed_dim=64, depth=2, img_dim=8,
+                    scan_type="zigzagN8", device="cpu", **kw)
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        with torch.inference_mode():
+            ref = cpu(batch["x"].cpu(), t.cpu())
+        assert _rel(out.cpu(), ref) <= TOL_FP32
+        loss_fn(batch, torch.Generator(device="cuda").manual_seed(3)).backward()
+        assert (scan_cuda.selective_scan_fwd_cuda.launches,
+                scan_cuda.selective_scan_bwd_cuda.launches) == launches
+        return
+    results = []
+    for backend in ("auto", "ref"):
+        for blk in model.blocks:
+            blk.mixer.scan_backend = backend
+        with torch.inference_mode():
+            fwd = model(batch["x"], t, batch["y"])
         model.zero_grad(set_to_none=True)
         loss = loss_fn(batch, torch.Generator(device="cuda").manual_seed(3))
         loss.backward()

@@ -125,13 +125,15 @@ def test_bf16_inference_cast_matches_jax():
 
 
 def test_later_slice_options_raise():
-    """Text, use_pe 3, Mamba-2 and selective remat still raise; video
-    models and the training label drop work now (held against JAX in
-    test_torch_video.py)."""
-    for kw in (dict(has_text=True), dict(use_pe=3),
-               dict(ssm_cfg=dict(ssm_version=2))):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ZigMa(**{**BASE, **kw}, depth=1, device="cpu")
+    """Selective remat still raises; text, use_pe 3 and Mamba-2 build now
+    (held against JAX in test_torch_text.py and test_torch_ssd.py), and so
+    do video models and the training label drop (test_torch_video.py)."""
+    for kw in (dict(has_text=True, d_context=16), dict(use_pe=3),
+               dict(ssm_cfg=dict(ssm_version=2, d_state=16, headdim=16))):
+        model = ZigMa(**{**BASE, **kw}, depth=1, device="cpu")
+        x = torch.zeros(2, 4, 8, 8)
+        y = torch.zeros(2, 5, 16) if kw.get("has_text") else None
+        assert model(x, torch.full((2,), 0.5), y).shape == (2, 4, 8, 8)
     with pytest.raises(NotImplementedError, match="later slice"):
         ZigMa(**BASE, depth=1, remat_policy="scan_out", device="cpu")
     video = ZigMa(**BASE, depth=1, video_frames=4, device="cpu")

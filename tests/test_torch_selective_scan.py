@@ -18,7 +18,9 @@ import torch
 from zigma_tpu.ops.scan_pallas import scan_core_fwd_pallas, selective_scan_pallas
 from zigma_tpu.ops.selective_scan import selective_scan_ref as jax_scan_ref
 from zigma_tpu_torch.ops import scan_cuda
-from zigma_tpu_torch.ops.selective_scan import selective_scan, selective_scan_ref
+from zigma_tpu_torch.ops.selective_scan import (SelectiveScanFn,
+                                                kernel_params, selective_scan,
+                                                selective_scan_ref)
 
 TOL = 1e-4
 
@@ -161,6 +163,50 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_gradients():
         selective_scan(*args[:5], backend="pallas")
     assert scan_cuda.selective_scan_fwd_cuda.launches == launches
     assert scan_cuda.selective_scan_bwd_cuda.launches == launches_bwd
+
+
+def test_kernel_params_normalise_A_D_and_a_missing_bias():
+    """What the CUDA path hands the kernels: contiguous fp32 A and D (cast
+    and copied from bf16 and from a transposed view), zeros of shape (d,)
+    for a missing bias, D None when not given."""
+    d = _inputs(8, L=16, D=8, N=4)
+    A_view = _t(np.ascontiguousarray(d["A"].T)).t()  # (8, 4), not contiguous
+    A, D, bias = kernel_params(A_view, _t(d["Dskip"]).to(torch.bfloat16), None)
+    assert not A_view.is_contiguous()
+    for t in (A, D, bias):
+        assert t.dtype == torch.float32 and t.is_contiguous()
+    assert torch.equal(A, A_view)
+    assert torch.equal(D, _t(d["Dskip"]).to(torch.bfloat16).float())
+    assert torch.equal(bias, torch.zeros(8))
+    A_in, bias_in = _t(d["A"]), _t(d["bias"])
+    A2, D2, bias2 = kernel_params(A_in, None, bias_in)
+    assert A2 is A_in and bias2 is bias_in and D2 is None  # nothing to copy
+
+
+def test_missing_bias_has_no_gradient_and_cast_params_keep_their_dtype():
+    """SelectiveScanFn without delta_bias returns no bias gradient; A given
+    in bf16 as a transposed view, and D in bf16, get their gradients in
+    bf16; the values equal the fp32 run's rounded to bf16."""
+    d = _inputs(9, L=40, D=8, N=4)
+    A_view = _t(np.ascontiguousarray(d["A"].T)).t().to(torch.bfloat16)
+    A_view.requires_grad_()
+    Dk = _t(d["Dskip"]).to(torch.bfloat16).requires_grad_()
+    A32 = A_view.detach().float().requires_grad_()
+    D32 = Dk.detach().float().requires_grad_()
+    u = _t(d["u"]).requires_grad_()
+    outs = []
+    for A, Dv in ((A_view, Dk), (A32, D32)):
+        out = SelectiveScanFn.apply(u, _t(d["delta"]), A, _t(d["B"]),
+                                    _t(d["C"]), None, Dv, _t(d["z"]), True,
+                                    False)
+        assert out.grad_fn.apply(torch.ones_like(out))[5] is None
+        out.sum().backward()
+        outs.append(out.detach())
+    assert torch.equal(outs[0], outs[1])
+    assert A_view.grad.dtype == Dk.grad.dtype == torch.bfloat16
+    assert A_view.grad.shape == (8, 4)
+    assert torch.equal(A_view.grad, A32.grad.to(torch.bfloat16))
+    assert torch.equal(Dk.grad, D32.grad.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("case", ["complex_A", "grouped_BC"])

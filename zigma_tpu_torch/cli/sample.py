@@ -11,11 +11,13 @@ guidance when ``cfg_scale != 1``.  Images are written as PNGs of the first
 three latent channels with the JAX package's uint8 rule; video latents as
 ``video_{it}_{rank}.npy`` per batch and one animated ``.gif`` per sample.
 The likelihood has no data loader here, so it scores the Gaussian noise it
-starts from (the reference's behaviour, with the JAX CLI's warning).
+starts from (the reference's behaviour, with the JAX CLI's warning), and a
+text model samples with zero (null) caption features, as the JAX CLI does
+without a loader (guidance then guides against the same zeros).
 
 Runs on CUDA unless ``device=cpu`` is given; asking for CUDA on a machine
-without it raises.  VAE decoding, metrics and text conditioning are later
-slices of the port and raise ``NotImplementedError``.
+without it raises.  VAE decoding and metrics are later slices of the port
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ def build_model(cfg: Config, device=None,
     data = cfg.data
     if data.get("has_text"):
         params.setdefault("has_text", True)
+        params.setdefault("d_context", data.get("d_context", 768))
+        params.setdefault("n_context_token", data.get("n_context_token", 77))
     if data.get("num_classes", -1) > 0:
         params.setdefault("num_classes", data["num_classes"])
     if data.get("video_frames", 0) > 0:
@@ -114,8 +118,6 @@ def build_sample_fn(cfg: Config, sampler: Sampler):
 
 def _check_supported(cfg: Config):
     later = [k for k in ("decode_latents", "metrics") if cfg.get(k)]
-    if cfg.data.get("has_text"):
-        later.append("text conditioning")
     if later:
         raise NotImplementedError(
             f"{', '.join(later)}: lands in a later slice of the port")
@@ -195,8 +197,12 @@ def main(argv=None) -> dict:
         calls[0] = 0
         stats = {}
         z = torch.randn(shape, generator=gen, device=device)
-        y = (torch.randint(0, n_classes, (bs,), generator=gen, device=device)
-             if n_classes > 0 else None)
+        y = None
+        if n_classes > 0:
+            y = torch.randint(0, n_classes, (bs,), generator=gen, device=device)
+        elif model.has_text:  # no caption loader: null (zero) features
+            y = torch.zeros((bs, model.n_context_token or 77,
+                             model.d_context), device=device)
         if kind == "likelihood":
             logger.warning(
                 "likelihood mode without a validation loader scores "

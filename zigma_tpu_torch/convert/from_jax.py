@@ -13,6 +13,24 @@ Conv kernel (kh, kw, in, out) -> (out, in, kh, kw); depthwise conv taps
 the parallelN branches ``scan_b{j}`` -> the reference's ``*_b_list.{j}``
 names (``A_b_log_list.{j}``, ``conv1d_b_list.{j}.weight``, ...).  The label
 table is copied whole, with its null-class row where the model has one.
+
+Text models: the Dense ``y_embedder`` -> the Linear ``y_embedder``; each
+block's ``msa`` (``to_q``, ``to_k``, ``to_v``, ``to_out``) ->
+``blocks.{i}.msa.{to_q,to_k,to_v,to_out.0}``, the reference names.
+use_pe 3: the per-layer ``pos_embed_{i}`` tables, or the stacked
+``(depth, 1, n_pe, embed)`` ``pos_embed_layers`` of a scan-over-layers
+model, -> ``pos_embed_layers.{i}``.
+
+Mamba-2 mixers (a block whose mixer has ``ssd``; the reference has no
+Mamba-2, so the names are the public ``mamba_ssm`` Mamba2 module's):
+
+    in_proj / out_proj (Dense)      -> mixer.in_proj / mixer.out_proj
+    norm_weight                     -> mixer.norm.weight
+    ssd.conv1d_weight (c, w)        -> mixer.conv1d.weight (c, 1, w)
+    ssd.conv1d_bias                 -> mixer.conv1d.bias
+    ssd.A_log, ssd.dt_bias, ssd.D   -> mixer.A_log, mixer.dt_bias, mixer.D
+    ssd_b.*                         -> the same with ``_b`` after the first
+                                       word: conv1d_b, A_b_log, dt_b_bias, D_b
 """
 
 from __future__ import annotations
@@ -50,19 +68,40 @@ def _branch(sd: dict, pre: str, br: dict, s: str, j: str = ""):
     sd[f"{pre}.{dt_proj}.bias"] = _tensor(br["dt_proj_bias"])
 
 
+def _ssd_branch(sd: dict, pre: str, br: dict, s: str):
+    """One Mamba-2 direction: ``s`` is '' or '_b'."""
+    sd[f"{pre}.conv1d{s}.weight"] = _tensor(
+        np.asarray(br["conv1d_weight"])[:, None, :])
+    if "conv1d_bias" in br:
+        sd[f"{pre}.conv1d{s}.bias"] = _tensor(br["conv1d_bias"])
+    sd[f"{pre}.A{s}_log"] = _tensor(br["A_log"])
+    sd[f"{pre}.dt{s}_bias"] = _tensor(br["dt_bias"])
+    sd[f"{pre}.D{s}"] = _tensor(br["D"])
+
+
 def _block(sd: dict, pre: str, blk: dict):
-    known = {"norm_weight", "norm_bias", "adaLN", "mixer"}
+    known = {"norm_weight", "norm_bias", "adaLN", "mixer", "msa"}
     if set(blk) - known:
-        raise NotImplementedError(
-            f"{pre}: {sorted(set(blk) - known)} (text cross-attention and "
-            f"other block extras land in a later slice of the port)")
+        raise ValueError(f"{pre}: unknown JAX params {sorted(set(blk) - known)}")
     sd[f"{pre}.norm.weight"] = _tensor(blk["norm_weight"])
     if "norm_bias" in blk:
         sd[f"{pre}.norm.bias"] = _tensor(blk["norm_bias"])
     _dense(sd, f"{pre}.adaLN_modulation.1", blk["adaLN"])
+    if "msa" in blk:
+        for name in ("to_q", "to_k", "to_v"):
+            _dense(sd, f"{pre}.msa.{name}", blk["msa"][name])
+        _dense(sd, f"{pre}.msa.to_out.0", blk["msa"]["to_out"])
     mixer = dict(blk["mixer"])
     _dense(sd, f"{pre}.mixer.in_proj", mixer.pop("in_proj"))
     _dense(sd, f"{pre}.mixer.out_proj", mixer.pop("out_proj"))
+    if "ssd" in mixer:  # Mamba-2
+        sd[f"{pre}.mixer.norm.weight"] = _tensor(mixer.pop("norm_weight"))
+        _ssd_branch(sd, f"{pre}.mixer", mixer.pop("ssd"), "")
+        if "ssd_b" in mixer:
+            _ssd_branch(sd, f"{pre}.mixer", mixer.pop("ssd_b"), "_b")
+        if mixer:
+            raise ValueError(f"{pre}.mixer: unknown JAX params {sorted(mixer)}")
+        return
     _branch(sd, f"{pre}.mixer", mixer.pop("scan"), "")
     if "scan_b" in mixer:
         _branch(sd, f"{pre}.mixer", mixer.pop("scan_b"), "_b")
@@ -93,13 +132,21 @@ def state_dict_from_jax(params: dict) -> dict:
     _dense(sd, "t_embedder.mlp.2", te["mlp_2"])
     if "y_embedder" in p:
         ye = p.pop("y_embedder")
-        if "embedding" not in ye:
-            raise NotImplementedError("text y_embedder lands in a later slice")
-        sd["y_embedder.embedding_table.weight"] = _tensor(
-            ye["embedding"]["embedding"])
+        if "embedding" in ye:  # class labels
+            sd["y_embedder.embedding_table.weight"] = _tensor(
+                ye["embedding"]["embedding"])
+        else:  # text: a Dense of the caption features
+            _dense(sd, "y_embedder", ye)
     for key in ("pos_embed", "temporal_pos_embedding"):
         if key in p:
             sd[key] = _tensor(p.pop(key))
+    if "pos_embed_layers" in p:  # use_pe 3, stacked (depth, 1, n_pe, embed)
+        for i, pe in enumerate(np.asarray(p.pop("pos_embed_layers"))):
+            sd[f"pos_embed_layers.{i}"] = _tensor(pe)
+    i = 0
+    while f"pos_embed_{i}" in p:  # use_pe 3, one table a layer
+        sd[f"pos_embed_layers.{i}"] = _tensor(p.pop(f"pos_embed_{i}"))
+        i += 1
 
     if "blocks" in p:  # stacked scan-over-layers layout
         stacked = p.pop("blocks")
@@ -119,7 +166,5 @@ def state_dict_from_jax(params: dict) -> dict:
         raise NotImplementedError("a conditioned FinalLayer lands in a later slice")
     _dense(sd, "final_layer.linear", fl["linear"])
     if p:
-        raise NotImplementedError(
-            f"unconverted JAX params {sorted(p)} (per-layer PE and other "
-            f"extras land in a later slice of the port)")
+        raise ValueError(f"unconverted JAX params {sorted(p)}")
     return sd

@@ -1,13 +1,16 @@
 // Helpers of the selective-scan kernels: the input types, the decay's
 // exponential on the special-function unit, the per-channel softplus and
 // gate, the asynchronous staging of a (tokens x channels) tile of a strided
-// tensor into shared memory, and (host side) the width of its copies.
+// tensor into shared memory, and (host side) the width of its copies and the
+// slicing of a batch past the grid's limit.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace zt {
 
@@ -140,6 +143,19 @@ inline int vec_elems(const void* p, long long row, int elt, int cols) {
   int bytes = 16;
   while (bytes > elt && a % bytes != 0) bytes >>= 1;
   return bytes / elt < cols ? bytes / elt : cols;
+}
+
+// Host side: CUDA's limit on gridDim.y, where both kernels put the batch.
+// Their entry points launch a larger batch in slices of at most this many
+// sequences, each slice's pointers advanced past the sequences before it.
+constexpr int kMaxGridY = 65535;
+
+// Host side: p advanced by `elems` elements of `elt` bytes (null stays null)
+template <typename T>
+inline T* advance(T* p, long long elems, int elt) {
+  if (p == nullptr) return p;
+  using Byte = typename std::conditional<std::is_const<T>::value, const char, char>::type;
+  return reinterpret_cast<T*>(reinterpret_cast<Byte*>(p) + elems * elt);
 }
 
 }  // namespace zt

@@ -666,8 +666,10 @@ extern "C" int zt_selective_scan_bwd_channels_per_block(int N) {
 
 // dtype: 0 = float32, 1 = bfloat16 (u, delta, B, C, gy, z, du, ddelta and dz
 // share it).  g_last and Dskip/z/dz/dDp may be null (no fused gate).  gy, du,
-// ddelta, dz and every fp32 tensor are contiguous.  Returns the launch's
-// cudaGetLastError().
+// ddelta, dz and every fp32 tensor are contiguous.  Any batch: more than
+// kMaxGridY sequences are launched in slices of that many (every output and
+// partial is per sequence, so the slices write disjoint rows).  Returns the
+// first failing launch's cudaGetLastError().
 extern "C" int zt_selective_scan_bwd(
     const void* u, const void* delta, const float* A, const float* bias,
     const void* Bm, const void* Cm, const float* carries, const void* gy,
@@ -677,7 +679,7 @@ extern "C" int zt_selective_scan_bwd(
     int batch, int L, int D, int N,
     long long u_row, long long delta_row, long long b_row, long long c_row,
     long long z_row, int dtype, void* stream) {
-  if (D < 1 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (D < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   if ((Dskip == nullptr) != (z == nullptr) || (z != nullptr && (dz == nullptr || dDp == nullptr)))
     return (int)cudaErrorInvalidValue;
   Config c;
@@ -685,6 +687,10 @@ extern "C" int zt_selective_scan_bwd(
   if (err != 0) return err;
   const int elt = dtype == 0 ? 4 : 2;
   const int npad = c.nl * c.npt;
+  const long long n_chunks = (L + kCarryEvery - 1) / kCarryEvery;
+  const long long n_blocks = (D + c.cpb - 1) / c.cpb;
+  // the copy widths of the first slice hold for every slice: each is
+  // advanced by whole rows
   Params p{u, delta, A, bias, Bm, Cm, carries, gy, g_last, Dskip, z,
            du, ddelta, dz, dBp, dCp, dAp, dx0, dDp,
            batch, L, D, N, u_row, delta_row, b_row, c_row, z_row, c.t_tile,
@@ -693,12 +699,34 @@ extern "C" int zt_selective_scan_bwd(
            z ? vec_elems(z, z_row, elt, c.cpb) : 1, vec_elems(gy, D, elt, c.cpb),
            vec_elems(du, D, elt, kVec) == kVec && vec_elems(ddelta, D, elt, kVec) == kVec &&
                (dz == nullptr || vec_elems(dz, D, elt, kVec) == kVec)};
-  void* args[] = {&p};
-  dim3 grid((D + c.cpb - 1) / c.cpb, batch);
-  err = (int)cudaLaunchKernel(c.fn, grid, dim3(kThreads), args, c.smem,
-                              static_cast<cudaStream_t>(stream));
-  const int last = (int)cudaGetLastError();
-  return err != 0 ? err : last;
+  for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
+    const long long rows = (long long)b0 * L, states = (long long)b0 * N * D;
+    Params q = p;
+    q.batch = batch - b0 < kMaxGridY ? batch - b0 : kMaxGridY;
+    q.u = advance(u, rows * u_row, elt);
+    q.delta = advance(delta, rows * delta_row, elt);
+    q.Bm = advance(Bm, rows * b_row, elt);
+    q.Cm = advance(Cm, rows * c_row, elt);
+    q.z = advance(z, rows * z_row, elt);
+    q.gy = advance(gy, rows * D, elt);
+    q.du = advance(du, rows * D, elt);
+    q.ddelta = advance(ddelta, rows * D, elt);
+    q.dz = advance(dz, rows * D, elt);
+    q.carries = advance(carries, n_chunks * states, 4);
+    q.g_last = advance(g_last, states, 4);
+    q.dBp = advance(dBp, n_blocks * rows * N, 4);
+    q.dCp = advance(dCp, n_blocks * rows * N, 4);
+    q.dAp = advance(dAp, states, 4);
+    q.dx0 = advance(dx0, states, 4);
+    q.dDp = advance(dDp, (long long)b0 * D, 4);
+    void* args[] = {&q};
+    dim3 grid((unsigned)n_blocks, q.batch);
+    err = (int)cudaLaunchKernel(c.fn, grid, dim3(kThreads), args, c.smem,
+                                static_cast<cudaStream_t>(stream));
+    const int last = (int)cudaGetLastError();
+    if (err != 0 || last != 0) return err != 0 ? err : last;
+  }
+  return 0;
 }
 
 // The launch shape and occupancy of the kernel instance for (N, L, dtype):

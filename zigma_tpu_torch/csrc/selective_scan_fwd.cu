@@ -336,8 +336,9 @@ int pick(int N, int L, int dtype, Config* c) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (u, delta, B, C, z and out share it).
-// x0, Dskip/z, carries and x_last may be null.  Returns the launch's
-// cudaGetLastError().
+// x0, Dskip/z, carries and x_last may be null.  Any batch: more than
+// kMaxGridY sequences are launched in slices of that many.  Returns the
+// first failing launch's cudaGetLastError().
 extern "C" int zt_selective_scan_fwd(
     const void* u, const void* delta, const float* A, const float* bias,
     const void* Bm, const void* Cm, const float* x0, const float* Dskip,
@@ -345,23 +346,41 @@ extern "C" int zt_selective_scan_fwd(
     int batch, int L, int D, int N,
     long long u_row, long long delta_row, long long b_row, long long c_row,
     long long z_row, int dtype, void* stream) {
-  if (D < 1 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (D < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   Config c;
   int err = pick(N, L, dtype, &c);
   if (err != 0) return err;
   const int elt = dtype == 0 ? 4 : 2;
   const int npad = c.nl * kNPT;
+  const long long n_carry = (L + kCarryEvery - 1) / kCarryEvery;
+  // the copy widths of the first slice hold for every slice: each is
+  // advanced by whole rows
   Params p{u, delta, Bm, Cm, z, A, bias, x0, Dskip, out, carries, x_last,
            batch, L, D, N, u_row, delta_row, b_row, c_row, z_row, c.t_chunk,
            vec_elems(u, u_row, elt, c.cpb), vec_elems(delta, delta_row, elt, c.cpb),
            vec_elems(Bm, b_row, elt, npad), vec_elems(Cm, c_row, elt, npad),
            z ? vec_elems(z, z_row, elt, c.cpb) : 1, vec_elems(out, D, elt, 8) * elt == 16};
-  void* args[] = {&p};
-  dim3 grid((D + c.cpb - 1) / c.cpb, batch);
-  err = (int)cudaLaunchKernel(c.fn, grid, dim3(c.threads), args, c.smem,
-                              static_cast<cudaStream_t>(stream));
-  const int last = (int)cudaGetLastError();
-  return err != 0 ? err : last;
+  for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
+    const long long rows = (long long)b0 * L, states = (long long)b0 * N * D;
+    Params q = p;
+    q.batch = batch - b0 < kMaxGridY ? batch - b0 : kMaxGridY;
+    q.u = advance(u, rows * u_row, elt);
+    q.delta = advance(delta, rows * delta_row, elt);
+    q.Bm = advance(Bm, rows * b_row, elt);
+    q.Cm = advance(Cm, rows * c_row, elt);
+    q.z = advance(z, rows * z_row, elt);
+    q.out = advance(out, rows * D, elt);
+    q.x0 = advance(x0, states, 4);
+    q.carries = advance(carries, n_carry * states, 4);
+    q.x_last = advance(x_last, states, 4);
+    void* args[] = {&q};
+    dim3 grid((D + c.cpb - 1) / c.cpb, q.batch);
+    err = (int)cudaLaunchKernel(c.fn, grid, dim3(c.threads), args, c.smem,
+                                static_cast<cudaStream_t>(stream));
+    const int last = (int)cudaGetLastError();
+    if (err != 0 || last != 0) return err != 0 ? err : last;
+  }
+  return 0;
 }
 
 // The launch shape and occupancy of the kernel instance for (N, L, dtype):

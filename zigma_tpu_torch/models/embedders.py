@@ -3,7 +3,8 @@
 Counterpart of ``zigma_tpu/models/embedders.py``.  Parameters are float32
 and keep the reference torch names (``x_embedder.proj``,
 ``t_embedder.mlp.0/2``, ``y_embedder.embedding_table``); each module computes
-in the model's ``dtype``.  Text captions are a later slice of the port.
+in the model's ``dtype``.  A text model's caption features go through a
+plain Linear ``y_embedder`` (``models/zigma.py``).
 """
 
 from __future__ import annotations

@@ -41,7 +41,8 @@ from zigma_tpu_torch.models.inits import (rescaled_linear_init_,
 from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
 from zigma_tpu_torch.ops.selective_scan import selective_scan
 
-__all__ = ["Mamba", "permute_tokens", "vjp_inverse"]
+__all__ = ["Mamba", "permute_tokens", "vjp_inverse", "fold_frames",
+           "unfold_frames", "register_path_tables"]
 
 _VIDEO_SCANS = ("video_", "zzvideo_")
 _SCANS = ("v1", "v2", "zigzagN", "hilbertN", "randomN", "parallelN",
@@ -85,6 +86,48 @@ def vjp_inverse(perm, paired_rev, trust_pair: bool):
     return np.argsort(np.asarray(perm))
 
 
+def fold_frames(x, frames: int, st: str):
+    """A video layer's fold: spatial (``st='s'``) ``(b, (t k), d) -> ((b t),
+    k, d)``, each frame's tokens a sequence; temporal (``'t'``) ``(b, (t k),
+    d) -> ((b k), t, d)``, each token's frames a sequence."""
+    B_, L, d = x.shape
+    if st == "s":
+        return x.reshape(B_ * frames, L // frames, d)
+    return x.reshape(B_, frames, L // frames, d).transpose(1, 2).reshape(
+        B_ * (L // frames), frames, d)
+
+
+def unfold_frames(out, batch: int, frames: int, st: str):
+    """The inverse of ``fold_frames``: back to (batch, (t k), d)."""
+    d = out.shape[-1]
+    L = out.shape[0] * out.shape[1] // batch
+    if st == "s":
+        return out.reshape(batch, L, d)
+    return out.reshape(batch, L // frames, frames, d).transpose(1, 2).reshape(
+        batch, L, d)
+
+
+def register_path_tables(module: nn.Module, perm, perm_rev, video: bool,
+                         device=None, **extra):
+    """The scan-path tables of a mixer as non-persistent long buffers (not
+    state: reference checkpoints have no such keys): ``perm`` /
+    ``perm_rev`` and the functional inverses their gathers' backward takes
+    (``perm_bwd`` / ``perm_rev_bwd``, ``vjp_inverse``), plus ``extra``
+    tables; a None table stays None."""
+    if (perm is None) != (perm_rev is None):
+        raise ValueError("perm and its inverse perm_rev come together")
+    tables = dict(perm=perm, perm_rev=perm_rev, perm_bwd=None,
+                  perm_rev_bwd=None, **extra)
+    if perm is not None:
+        tables["perm_bwd"] = vjp_inverse(perm, perm_rev, not video)
+        tables["perm_rev_bwd"] = vjp_inverse(perm_rev, perm, not video)
+    for name, p in tables.items():
+        module.register_buffer(
+            name, None if p is None else torch.as_tensor(
+                np.asarray(p), dtype=torch.long, device=device),
+            persistent=False)
+
+
 class Mamba(nn.Module):
     """Selective-SSM token mixer.  ``perm``/``perm_rev`` are this layer's
     scan path and its paired table (numpy int arrays) or None: the inverse
@@ -106,8 +149,6 @@ class Mamba(nn.Module):
         super().__init__()
         if not scan_type.startswith(_SCANS):
             raise ValueError(f"unknown scan_type: {scan_type!r}")
-        if (perm is None) != (perm_rev is None):
-            raise ValueError("perm and its inverse perm_rev come together")
         self.video = scan_type.startswith(_VIDEO_SCANS)
         if self.video and (st not in ("s", "t") or video_frames <= 0):
             raise ValueError(
@@ -163,25 +204,12 @@ class Mamba(nn.Module):
                 nn.Parameter(torch.empty(di, device=device))
                 for _ in range(n_par))
         self.out_proj = nn.Linear(di, d_model, bias=bias, device=device)
-        # the permutation tables are not state: persistent=False keeps them
-        # out of state_dict() (reference checkpoints have no such keys).
-        # perm_bwd / perm_rev_bwd: the functional inverses the gathers'
-        # backward takes
-        tables = dict(perm=perm, perm_rev=perm_rev, perm_bwd=None,
-                      perm_rev_bwd=None, parallel_perm=None,
-                      parallel_perm_rev=None)
-        if perm is not None:
-            tables["perm_bwd"] = vjp_inverse(perm, perm_rev, not self.video)
-            tables["perm_rev_bwd"] = vjp_inverse(perm_rev, perm, not self.video)
-        if n_par:
-            tables["parallel_perm"] = np.stack([p for p, _ in parallel_perms])
-            tables["parallel_perm_rev"] = np.stack(
-                [pr for _, pr in parallel_perms])
-        for name, p in tables.items():
-            self.register_buffer(
-                name, None if p is None else torch.as_tensor(
-                    np.asarray(p), dtype=torch.long, device=device),
-                persistent=False)
+        register_path_tables(
+            self, perm, perm_rev, self.video, device,
+            parallel_perm=(np.stack([p for p, _ in parallel_perms])
+                           if n_par else None),
+            parallel_perm_rev=(np.stack([pr for _, pr in parallel_perms])
+                               if n_par else None))
 
     def _branches(self):
         """(conv1d, x_proj, dt_proj, A_log, D) of every scan branch: the
@@ -244,14 +272,9 @@ class Mamba(nn.Module):
 
     def forward(self, x):
         """x: (batch, L, d_model) -> (batch, L, d_model)."""
-        B_, L, d = x.shape
+        B_ = x.shape[0]
         if self.video:
-            T = self.video_frames
-            K = L // T
-            if self.st == "s":  # (b, (t k), d) -> ((b t), k, d)
-                x = x.reshape(B_ * T, K, d)
-            else:  # (b, (t k), d) -> ((b k), t, d)
-                x = x.reshape(B_, T, K, d).transpose(1, 2).reshape(B_ * K, T, d)
+            x = fold_frames(x, self.video_frames, self.st)
         if self.perm is not None:
             x = permute_tokens(x, self.perm, self.perm_bwd)
         xz = dense(self.in_proj, x, self.dtype)
@@ -271,9 +294,5 @@ class Mamba(nn.Module):
         if self.perm_rev is not None:
             out = permute_tokens(out, self.perm_rev, self.perm_rev_bwd)
         if self.video:
-            if self.st == "s":  # ((b t), k, d) -> (b, (t k), d)
-                out = out.reshape(B_, L, d)
-            else:  # ((b k), t, d) -> (b, (t k), d)
-                out = out.reshape(B_, L // T, T, d).transpose(1, 2).reshape(
-                    B_, L, d)
+            out = unfold_frames(out, B_, self.video_frames, self.st)
         return out

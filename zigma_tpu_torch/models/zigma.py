@@ -3,8 +3,10 @@
 Counterpart of ``zigma_tpu/models/zigma.py``.  Per block:
 
     x, residual = add_norm(x, residual, prenorm=True)
-    shift, scale, gate = adaLN(silu(c))
-    x = x + gate * Mamba(modulate(x, shift, scale))
+    shift, scale, gate[, shift_msa, scale_msa, gate_msa] = adaLN(silu(c))
+    x = x + gate * Mixer(modulate(x, shift, scale))
+    x = x + gate_msa * CrossAttn(modulate(LN(x), shift_msa, scale_msa), text)
+                                                         # with has_text
 
 then a final add-norm, the FinalLayer linear and unpatchify.  The stack is a
 list of per-layer ``blocks.{i}`` (no counterpart of JAX's ``nn.scan`` over
@@ -32,8 +34,20 @@ is unpatchified back to (B, T, C, H, W).  Class labels are dropped to the
 null class under training (CFG training), drawn from the same generator as
 the drop-path masks; ``forward_with_cfg`` runs the guided forward.
 
-Text cross-attention, use_pe=3, the Mamba-2 mixer and selective remat
-policies are later slices: asking for them raises.
+The mixer is ``Mamba`` (Mamba-1, the selective scan) or, with
+``ssm_cfg={"ssm_version": 2, ...}``, ``Mamba2`` (the SSD recurrence).
+
+Text models (``has_text``) take y as (B, n_context_token, d_context)
+caption features: the ``y_embedder`` Linear projects them to the embed
+width, their mean over tokens joins the timestep embedding in c, and the
+projected tokens are the context of every block's cross-attention
+(``msa``, 8 heads of 64, the reference names ``msa.{to_q,to_k,to_v,
+to_out.0}``).  ``use_pe=3`` adds a learned zero-init (1, n_pe, embed) table
+before each block i, ``pos_embed_layers.{i}`` (the reference aliased one
+unregistered tensor, so it has no name for them; this one matches the
+JAX package's stacked ``pos_embed_layers``).
+
+Selective remat policies are a later slice: asking for one raises.
 """
 
 from __future__ import annotations
@@ -52,11 +66,13 @@ from zigma_tpu_torch.models.embedders import (LabelEmbedder, PatchEmbed,
                                               get_2d_sincos_pos_embed)
 from zigma_tpu_torch.models.inits import torch_linear_init_
 from zigma_tpu_torch.models.mamba import Mamba
+from zigma_tpu_torch.models.mamba2 import Mamba2
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm
 from zigma_tpu_torch.ops.paths import build_layer_paths, parallel_scan_perms
 
-__all__ = ["ZigMa", "ZigMaBlock", "FinalLayer", "ZIGMA_PRESETS", "zigma_flops",
-           "modulate", "drop_path", "drop_path_rates"]
+__all__ = ["ZigMa", "ZigMaBlock", "CrossAttention", "FinalLayer",
+           "ZIGMA_PRESETS", "zigma_flops", "modulate", "drop_path",
+           "drop_path_rates"]
 
 
 def modulate(x, shift, scale):
@@ -80,6 +96,51 @@ def drop_path(x, rate: float, keep_mask):
     return x / keep
 
 
+class CrossAttention(nn.Module):
+    """Cross-attention of the tokens to a context (the text tokens):
+    ``zigma_tpu/models/zigma.py::CrossAttention``.  ``to_q``/``to_k``/
+    ``to_v`` without bias, ``to_out.0`` with one (the reference names);
+    ``heads`` x ``dim_head`` inner width whatever the embed.  The attention
+    itself is ``F.scaled_dot_product_attention`` at scale 1/sqrt(dim_head),
+    as JAX leaves it to XLA's fused attention."""
+
+    def __init__(self, query_dim: int, context_dim: Optional[int] = None,
+                 heads: int = 8, dim_head: int = 64,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
+        self.context_dim = context_dim or query_dim
+        inner = heads * dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False, device=device)
+        self.to_k = nn.Linear(self.context_dim, inner, bias=False, device=device)
+        self.to_v = nn.Linear(self.context_dim, inner, bias=False, device=device)
+        self.to_out = nn.Sequential(nn.Linear(inner, query_dim, device=device))
+
+    def reset_parameters(self, generator=None):
+        for lin in (self.to_q, self.to_k, self.to_v, self.to_out[0]):
+            torch_linear_init_(lin.weight, generator)
+        nn.init.zeros_(self.to_out[0].bias)
+
+    def forward(self, x, context):
+        """x (B, L, query_dim), context (B, S, context_dim) -> (B, L,
+        query_dim)."""
+        if context.shape[-1] != self.context_dim:
+            raise ValueError(
+                f"CrossAttention got context with feature dim "
+                f"{context.shape[-1]}, expected context_dim={self.context_dim}")
+        B, L, _ = x.shape
+        S = context.shape[1]
+        # (B, L, H, Dh) as JAX lays the heads out, then (B, H, L, Dh) for SDPA
+        q = dense(self.to_q, x, self.dtype).reshape(B, L, self.heads, -1)
+        k = dense(self.to_k, context, self.dtype).reshape(B, S, self.heads, -1)
+        v = dense(self.to_v, context, self.dtype).reshape(B, S, self.heads, -1)
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=self.dim_head ** -0.5)
+        o = o.transpose(1, 2).reshape(B, L, self.heads * self.dim_head)
+        return dense(self.to_out[0], o, self.dtype)
+
+
 class _Norm(nn.Module):
     """Parameter holder of a block norm (``weight``, and ``bias`` for
     LayerNorm); the math is ``ops.norms.add_norm``."""
@@ -96,38 +157,52 @@ class _Norm(nn.Module):
 
 
 class ZigMaBlock(nn.Module):
-    """adaLN Mamba block with the prenorm-residual contract."""
+    """adaLN Mamba block with the prenorm-residual contract; the mixer is
+    ``Mamba`` or, with ``mixer_cfg["ssm_version"] == 2``, ``Mamba2``;
+    ``has_text`` adds the cross-attention (``msa``) and three more adaLN
+    parts."""
 
-    def __init__(self, dim: int, mixer_cfg: dict, rms_norm: bool = True,
-                 norm_epsilon: float = 1e-5, residual_in_fp32: bool = True,
-                 n_layer: int = 1, dtype: torch.dtype = torch.float32,
-                 device=None):
+    def __init__(self, dim: int, mixer_cfg: dict, has_text: bool = False,
+                 rms_norm: bool = True, norm_epsilon: float = 1e-5,
+                 residual_in_fp32: bool = True, n_layer: int = 1,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.has_text = dtype, has_text
         self.kind = "rms" if rms_norm else "layer"
         self.eps, self.residual_in_fp32 = norm_epsilon, residual_in_fp32
         self.norm = _Norm(dim, bias=not rms_norm, device=device)
+        n_mod = 6 if has_text else 3
         self.adaLN_modulation = nn.Sequential(
-            nn.SiLU(), nn.Linear(dim, 3 * dim, device=device))
-        self.mixer = Mamba(dim, n_layer=n_layer, dtype=dtype, device=device,
-                           **mixer_cfg)
+            nn.SiLU(), nn.Linear(dim, n_mod * dim, device=device))
+        mixer_cfg = dict(mixer_cfg)
+        mixer_cls = {1: Mamba, 2: Mamba2}[int(mixer_cfg.pop("ssm_version", 1))]
+        self.mixer = mixer_cls(dim, n_layer=n_layer, dtype=dtype,
+                               device=device, **mixer_cfg)
+        if has_text:
+            self.msa = CrossAttention(dim, dim, dtype=dtype, device=device)
 
     def reset_parameters(self, generator=None):
         self.norm.reset_parameters()
         nn.init.zeros_(self.adaLN_modulation[1].weight)  # DiT zero-init
         nn.init.zeros_(self.adaLN_modulation[1].bias)
         self.mixer.reset_parameters(generator)
+        if self.has_text:
+            self.msa.reset_parameters(generator)
 
-    def forward(self, x, residual, c, drop=None):
-        """``drop``: optional ``(rate, keep_mask)`` stochastic depth on x."""
+    def forward(self, x, residual, c, drop=None, text=None):
+        """``drop``: optional ``(rate, keep_mask)`` stochastic depth on x;
+        ``text``: the (B, S, dim) context of a text block."""
         if drop is not None:
             x = drop_path(x, *drop)
         x, residual = add_norm(x, self.norm.weight, self.norm.bias, residual,
                                kind=self.kind, eps=self.eps, prenorm=True,
                                residual_in_fp32=self.residual_in_fp32)
         mod = dense(self.adaLN_modulation[1], F.silu(c), self.dtype)
-        shift, scale, gate = mod.chunk(3, dim=-1)
-        x = x + gate[:, None] * self.mixer(modulate(x, shift, scale))
+        parts = mod.chunk(6 if self.has_text else 3, dim=-1)
+        x = x + parts[2][:, None] * self.mixer(modulate(x, parts[0], parts[1]))
+        if self.has_text:
+            h = modulate(layer_norm(x, eps=1e-6), parts[3], parts[4])
+            x = x + parts[5][:, None] * self.msa(h, text)
         return x, residual
 
 
@@ -152,7 +227,8 @@ class FinalLayer(nn.Module):
 class ZigMa(nn.Module):
     """The denoiser: ``model(x, t, y=None)`` with x (B, C, H, W) latents or
     (B, T, C, H, W) video latents, t (B,) in [0, 1], y optional class
-    labels (B,)."""
+    labels (B,) or, for a text model, caption features (B,
+    n_context_token, d_context)."""
 
     def __init__(self, in_channels: int, embed_dim: int, depth: int,
                  img_dim: int, patch_size: int = 1, num_classes: int = -1,
@@ -163,25 +239,27 @@ class ZigMa(nn.Module):
                  remat_policy: Optional[str] = None,
                  ssm_cfg: Optional[dict] = None, path_seed: int = 0,
                  scan_backend: str = "auto", has_text: bool = False,
+                 d_context: int = 0, n_context_token: int = 0,
                  video_frames: int = 0, tpe: bool = False,
                  dtype: torch.dtype = torch.float32,
                  device=None, generator: Optional[torch.Generator] = None,
                  **unsupported):
         super().__init__()
         ssm_cfg = dict(ssm_cfg or {})
-        later = dict(unsupported)
-        if has_text:
-            later["has_text"] = has_text
-        if use_pe not in (0, 1, 2):
-            later["use_pe"] = use_pe
-        if int(ssm_cfg.pop("ssm_version", 1)) != 1:
-            later["ssm_cfg.ssm_version"] = 2
-        if later:
+        if unsupported:
             raise NotImplementedError(
-                f"{later}: lands in a later slice of the port (the port "
-                f"has image and video ZigMa with Mamba-1 mixers, use_pe 0-2, "
-                f"unconditional or class labels)")
+                f"{unsupported}: lands in a later slice of the port")
+        if use_pe not in (0, 1, 2, 3):
+            raise ValueError(f"unknown use_pe {use_pe} (0 none, 1 sin-cos, "
+                             f"2 learned, 3 learned per layer)")
+        if int(ssm_cfg.get("ssm_version", 1)) not in (1, 2):
+            raise ValueError(f"unknown ssm_version {ssm_cfg['ssm_version']}")
+        if has_text and d_context <= 0:
+            raise ValueError("a text model (has_text) needs d_context > 0, "
+                             "the caption features' width")
         self.in_channels, self.embed_dim, self.depth = in_channels, embed_dim, depth
+        self.has_text, self.d_context = has_text, d_context
+        self.n_context_token = n_context_token
         self.img_dim, self.patch_size = img_dim, patch_size
         self.num_classes, self.use_pe, self.dtype = num_classes, use_pe, dtype
         self.rms_norm, self.norm_epsilon = rms_norm, norm_epsilon
@@ -203,7 +281,9 @@ class ZigMa(nn.Module):
         self.x_embedder = PatchEmbed(patch_size, in_channels, embed_dim,
                                      dtype=dtype, device=device)
         self.t_embedder = TimestepEmbedder(embed_dim, dtype=dtype, device=device)
-        if num_classes > 0:
+        if has_text:  # the reference's plain Linear
+            self.y_embedder = nn.Linear(d_context, embed_dim, device=device)
+        elif num_classes > 0:
             self.y_embedder = LabelEmbedder(num_classes, embed_dim,
                                             class_dropout_prob, device=device)
         if use_pe == 1:
@@ -213,6 +293,11 @@ class ZigMa(nn.Module):
         elif use_pe == 2:
             self.pos_embed = nn.Parameter(
                 torch.zeros(1, n_patches * n_frames, embed_dim, device=device))
+        elif use_pe == 3:
+            self.pos_embed_layers = nn.ParameterList(
+                nn.Parameter(torch.zeros(1, n_patches * n_frames, embed_dim,
+                                         device=device))
+                for _ in range(depth))
         if video_frames > 0 and tpe:
             self.temporal_pos_embedding = nn.Parameter(
                 torch.zeros(1, video_frames, embed_dim, device=device))
@@ -228,7 +313,7 @@ class ZigMa(nn.Module):
                                        else st_order[i],
                                        parallel_perms=parallel_perms,
                                        scan_backend=scan_backend, **ssm_cfg),
-                       rms_norm=rms_norm, norm_epsilon=norm_epsilon,
+                       has_text=has_text, rms_norm=rms_norm, norm_epsilon=norm_epsilon,
                        residual_in_fp32=residual_in_fp32, n_layer=depth,
                        dtype=dtype, device=device)
             for i in range(depth)])
@@ -243,23 +328,33 @@ class ZigMa(nn.Module):
             for m in (self.x_embedder, self.t_embedder, *self.blocks,
                       self.norm_f, self.final_layer):
                 m.reset_parameters(generator)
-            if self.num_classes > 0:
+            if self.has_text:
+                torch_linear_init_(self.y_embedder.weight, generator)
+                self.y_embedder.bias.zero_()
+            elif self.num_classes > 0:
                 self.y_embedder.reset_parameters(generator)
             if self.use_pe == 2:
                 self.pos_embed.zero_()
+            elif self.use_pe == 3:
+                for pe in self.pos_embed_layers:
+                    pe.zero_()
             if self.video_frames > 0 and self.tpe:
                 self.temporal_pos_embedding.zero_()
 
     def forward(self, x, t, y=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         """x (B, C, H, W) or (B, T, C, H, W), t (B,) in [0, 1], y (B,)
-        labels or None.  ``train`` turns on stochastic depth and the label
-        drop, whose draws come from ``generator`` (the default generator
-        when None)."""
+        labels, (B, n_context_token, d_context) caption features or None.
+        ``train`` turns on stochastic depth and the label drop, whose draws
+        come from ``generator`` (the default generator when None)."""
         h = self.x_embedder(x)
         B, L, E = h.shape
         c = self.t_embedder((t * 1000.0).float())
-        if self.num_classes > 0:
+        text = None
+        if self.has_text:  # the projected tokens are every block's context
+            text = dense(self.y_embedder, y, self.dtype)
+            c = c + text.mean(1)
+        elif self.num_classes > 0:
             c = c + self.y_embedder(y, train=train, generator=generator)
         if self.use_pe == 1:
             h = h + self.pe_table.to(self.dtype)[None]
@@ -278,12 +373,14 @@ class ZigMa(nn.Module):
             drops = [(float(r), u[i] < 1.0 - r) for i, r in enumerate(rates)]
         remat = self.use_checkpoint and torch.is_grad_enabled()
         residual = None
-        for block, drop in zip(self.blocks, drops):
+        for i, (block, drop) in enumerate(zip(self.blocks, drops)):
+            if self.use_pe == 3:
+                h = h + self.pos_embed_layers[i].to(self.dtype)
             if remat:
-                h, residual = checkpoint(block, h, residual, c, drop,
+                h, residual = checkpoint(block, h, residual, c, drop, text,
                                          use_reentrant=False)
             else:
-                h, residual = block(h, residual, c, drop)
+                h, residual = block(h, residual, c, drop, text)
         if drops[-1] is not None:
             h = drop_path(h, *drops[-1])
         h = add_norm(h, self.norm_f.weight, self.norm_f.bias, residual,

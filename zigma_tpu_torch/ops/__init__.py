@@ -14,6 +14,7 @@ from zigma_tpu_torch.ops.selective_scan import (SelectiveScanFn, selective_scan,
                                                 selective_scan_ref)
 from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
                                            selective_scan_fwd_cuda)
+from zigma_tpu_torch.ops.ssd import ssd_scan, ssd_scan_ref, ssd_state_update
 
 __all__ = [
     "build_layer_paths",
@@ -33,4 +34,7 @@ __all__ = [
     "selective_scan_bwd_ref",
     "selective_scan_fwd_cuda",
     "selective_scan_bwd_cuda",
+    "ssd_scan",
+    "ssd_scan_ref",
+    "ssd_state_update",
 ]

@@ -12,7 +12,9 @@ wrappers only ever launch their kernel and raise on anything it does not
 take.  Each checks device, dtype, shape and layout, allocates every output
 with ``torch.empty``, launches on ``torch.cuda.current_stream()`` without
 synchronising, raises if ``cudaGetLastError()`` reports a failed launch, and
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches``.  One wrapper call takes any
+batch and counts one launch: past the grid's 65535 sequences the C entry
+point launches the kernel on slices of the batch.
 """
 
 from __future__ import annotations
@@ -26,13 +28,12 @@ from zigma_tpu_torch.ops import _build
 
 __all__ = ["selective_scan_fwd_cuda", "selective_scan_bwd_cuda",
            "selective_scan_fwd_launch_info", "selective_scan_bwd_launch_info",
-           "CARRY_EVERY", "MAX_D_STATE", "MAX_BATCH"]
+           "CARRY_EVERY", "MAX_D_STATE"]
 
 SOURCE = "selective_scan_fwd.cu"
 SOURCE_BWD = "selective_scan_bwd.cu"
 CARRY_EVERY = 128   # chunk-start state period (the Pallas kernel's block_l)
 MAX_D_STATE = 256
-MAX_BATCH = 65535   # both kernels put the batch on gridDim.y
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _bwd = None
@@ -136,13 +137,6 @@ def _check_scan_inputs(who: str, tensors: dict, fp32_names):
         raise ValueError("the fused gate needs D and z together")
     batch, L, d = u.shape
     N = A.shape[1]
-    if batch > MAX_BATCH:
-        raise ValueError(
-            f"{who}: {batch} sequences in one launch; the kernel takes at "
-            f"most {MAX_BATCH} (its grid's y dimension).  A video model's "
-            f"temporal layers fold every token of every frame into the "
-            f"batch (batch x tokens a frame sequences, twice that under "
-            f"classifier-free guidance): sample fewer videos a batch")
     if N > MAX_D_STATE:
         raise NotImplementedError(f"d_state {N} > {MAX_D_STATE}: larger "
                                   f"states land in a later slice of the port")

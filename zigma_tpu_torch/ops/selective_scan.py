@@ -30,7 +30,7 @@ from zigma_tpu_torch.ops.scan_cuda import (CARRY_EVERY, selective_scan_bwd_cuda,
                                            selective_scan_fwd_cuda)
 
 __all__ = ["selective_scan", "selective_scan_ref", "selective_scan_bwd_ref",
-           "SelectiveScanFn"]
+           "SelectiveScanFn", "kernel_params"]
 
 
 def _check_supported(A, B, C):
@@ -186,24 +186,31 @@ class SelectiveScanFn(torch.autograd.Function):
     forward: the K1 kernel on CUDA, ``selective_scan_ref`` on the CPU (or
     with ``use_ref``), keeping the chunk-start states; backward: the K2
     kernel on CUDA, ``selective_scan_bwd_ref`` on the CPU (or with
-    ``use_ref``).  The kernels take only dt = softplus(delta + bias).
+    ``use_ref``).  The kernels take only dt = softplus(delta + bias), and
+    A, D and the bias through ``kernel_params``: a missing bias is zeros
+    and gets no gradient, and the gradients of A, D and the bias come back
+    in the caller's dtypes.
     """
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, delta_bias, D, z, delta_softplus,
                 use_ref):
+        ctx.dtypes = tuple(None if t is None else t.dtype
+                           for t in (A, delta_bias, D))
         if not use_ref and u.device.type == "cuda":
             if not delta_softplus:
                 raise NotImplementedError(
                     "the CUDA kernels always take dt = softplus(delta + "
                     "delta_bias); a scan without softplus lands in a later "
                     "slice of the port")
+            A, D, bias = kernel_params(A, D, delta_bias)
             out, carries, _ = selective_scan_fwd_cuda(
-                u, delta, A, B, C, delta_bias, D, z, return_carries=True)
+                u, delta, A, B, C, bias, D, z, return_carries=True)
         else:
+            bias = delta_bias
             out, carries, _ = selective_scan_ref(u, delta, A, B, C, D, z,
                                                  delta_bias, delta_softplus)
-        ctx.save_for_backward(u, delta, A, B, C, delta_bias, D, z, carries)
+        ctx.save_for_backward(u, delta, A, B, C, bias, D, z, carries)
         ctx.delta_softplus, ctx.use_ref = delta_softplus, use_ref
         return out
 
@@ -218,8 +225,12 @@ class SelectiveScanFn(torch.autograd.Function):
                                        gy, None, D, z, ctx.delta_softplus)
         du, dd, dA, dB, dC, dbias = g[:6]
         dz, dD = g[7:] if z is not None else (None, None)
-        return (du, dd, dA, dB, dC, dbias if delta_bias is not None else None,
-                dD, dz, None, None)
+        # the parameters' gradients in the caller's dtypes (the kernels took
+        # fp32 copies); none for a bias the caller did not give
+        A_t, bias_t, D_t = ctx.dtypes
+        return (du, dd, dA.to(A_t), dB, dC,
+                None if bias_t is None else dbias.to(bias_t),
+                None if dD is None else dD.to(D_t), dz, None, None)
 
 
 def selective_scan(u, delta, A, B, C,
@@ -268,14 +279,28 @@ def selective_scan(u, delta, A, B, C,
     if use_ref:
         out, _, x_last = selective_scan_ref(u, delta, A, B, C, D, z,
                                             delta_bias, delta_softplus)
-    elif (D is None) == (z is None):
+    else:
+        # the kernel fuses the skip term and the gate only together
+        fused = (D is None) == (z is None)
+        A32, D32, bias = kernel_params(A, D if fused else None, delta_bias)
         out, _, x_last = selective_scan_fwd_cuda(
-            u, delta, A, B, C, delta_bias, D, z, return_carries=False)
-    else:  # the kernel fuses the skip term and the gate only together
-        out, _, x_last = selective_scan_fwd_cuda(
-            u, delta, A, B, C, delta_bias, return_carries=False)
-        out = _skip_and_gate(out, u, D, z)
+            u, delta, A32, B, C, bias, D32, z if fused else None,
+            return_carries=False)
+        if not fused:
+            out = _skip_and_gate(out, u, D, z)
     return (out, x_last.transpose(1, 2)) if return_last_state else out
+
+
+def kernel_params(A, D, delta_bias):
+    """``(A, D, delta_bias)`` as the CUDA kernels take them: contiguous fp32
+    copies where the caller's are of another dtype or layout, and zeros of
+    shape (d,) for a missing bias, as the JAX Pallas entry puts them
+    (``zigma_tpu/ops/scan_pallas.py::selective_scan_pallas``).  D stays
+    None when not given."""
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    bias = (torch.zeros(A.shape[0], dtype=torch.float32, device=A.device)
+            if delta_bias is None else f32(delta_bias))
+    return f32(A), None if D is None else f32(D), bias
 
 
 def _skip_and_gate(y, u, D, z):

@@ -8,9 +8,11 @@ place, exactly the parameters whose use sites consume them in the compute
 dtype, so the model computes the same values as before.
 
 Kept float32, as in the JAX package (and the reference's CUDA dtypes):
-A_log, D, the dt_proj bias (consumed by the fp32 scan), norm weights and
-biases, pos_embed, temporal_pos_embedding, and the embedders (timestep / label / patch), which feed
-the conditioning path.
+A_log, D, the dt_proj bias and the Mamba-2 dt bias (consumed by the fp32
+scans), norm weights and biases (the Mamba-2 gated norm's too),
+pos_embed, the use_pe 3 tables, temporal_pos_embedding, and the embedders
+(timestep / label / text / patch), which feed the conditioning path.  The
+cross-attention's GEMM weights are cast.
 
 The rule table is exhaustive: a float32 parameter it does not know raises
 instead of being guessed.
@@ -28,12 +30,14 @@ __all__ = ["cast_for_inference", "inference_dtype_rule"]
 _KEEP = (
     r"^(x_embedder|t_embedder|y_embedder)\.",
     r"^(pos_embed|temporal_pos_embedding)$",
+    r"^pos_embed_layers\.\d+$",
     r"(^|\.)(norm|norm_f)\.(weight|bias)$",
     r"\.mixer\.(A|A_b)_log$",
     r"\.mixer\.A_b_log_list\.\d+$",
     r"\.mixer\.(D|D_b)$",
     r"\.mixer\.D_b_list\.\d+$",
     r"\.mixer\.dt_proj(_b|_b_list\.\d+)?\.bias$",
+    r"\.mixer\.(dt|dt_b)_bias$",
 )
 _CAST = (
     r"\.mixer\.(in_proj|out_proj)\.(weight|bias)$",
@@ -42,6 +46,7 @@ _CAST = (
     r"\.mixer\.dt_proj(_b|_b_list\.\d+)?\.weight$",
     r"\.adaLN_modulation\.1\.(weight|bias)$",
     r"^final_layer\.linear\.(weight|bias)$",
+    r"\.msa\.(to_q|to_k|to_v|to_out\.0)\.(weight|bias)$",
 )
 
 
