@@ -98,8 +98,33 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 22. 1024^2 sample -- ``cli.sample`` at ``s1024_zigzag8_b2`` (patch 2, 4096
                  tokens) and at patch 1 (16384 tokens), batch 1, 50-step
                  Euler: K1 24 x 49 launches a batch;
-23. profile   -- the device time of one flagship forward, one flagship
-                 training step, one video training step, one guided video
+23. vae / clip -- the SD-VAE at full width (random weights written as a
+                 diffusers-layout file and loaded through ``VAECodec``):
+                 encode (mean, logvar, posterior sample) and decode of 2
+                 256^2 images on the card against the CPU, then encode and
+                 decode at batch 16 and a 1024^2 decode timed beside the
+                 fp32 bound; the CLIP ViT-L/14 text tower on 16 x 77 token
+                 ids the same way;
+24. prepare data -- ``cli.prepare_data --codec sd-vae --keep-jpeg`` on 64
+                 seeded PNGs of mixed sizes into churches-layout shards; a
+                 coco layout (those members and 5 captions' CLIP features a
+                 sample) and a ucf101 layout (``FeaturePrepDataset``: 20
+                 VAE-encoded frames and a class id a clip);
+25. train from shards -- ``cli.train`` from the churches (flagship), coco
+                 (text model) and ucf101 (video model, batch 4) shards, 8
+                 steps each: K1 48 and K2 24 launches a step; the loaders'
+                 samples/s alone;
+26. sample to pixels -- ``cli.sample`` with ``decode_latents=true
+                 vae_kind=sd-vae``: 2 batches of 16 flagship samples as
+                 256x256 RGB PNGs (K1 24 x 49 a batch), one guided batch of
+                 4 videos as 16-frame GIFs; the likelihood on the churches
+                 validation split (K1 48 x 9, K2 24 x 9); ``sd-vae``
+                 without weights raises; the native tar reader served every
+                 shard of phases 24-26;
+27. profile   -- the device time of one flagship forward, one flagship
+                 training step (synthetic, and from the churches shards
+                 with the loader's thread running: the device's idle share
+                 of each), one video training step, one guided video
                  forward, one text training step and one ssm2 training
                  step, by kind (torch.profiler).
 
@@ -109,6 +134,7 @@ The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the nvidia-smi line comes just before.
 """
 
+import io
 import json
 import math
 import os
@@ -224,6 +250,26 @@ BF16_EPS = 2.0 ** -8
 # 2 (configs/model/s1024_zigzag8_b2.yaml, 4096 tokens) and patch 1 (16384)
 S1024 = {"p2": ["model=s1024_zigzag8_b2"],
          "p1": ["model=s1024_zigzag8_b2", "model.params.patch_size=1"]}
+# the data path: random full-width SD-VAE and CLIP weights from these
+# seeds; 64 seeded images of mixed sizes in 4 shards of each layout
+# (churches, coco with 5 captions a sample as COCO has, ucf101 with 20
+# stored frames for the 16-frame window); the configs' shard specs are cut
+# to these 4 shards
+VAE_SEED = CLIP_SEED = 0
+N_IMAGES, SHARD_SIZE, N_SHARDS = 64, 16, 4
+DATA_SHARDS = "train-{000000..000003}.tar"
+IMAGE_SIZES = [(256, 256), (300, 400), (512, 384), (200, 264), (384, 288)]
+N_CAPTIONS = 5
+N_VIDEOS, UCF_SRC_FRAMES, UCF_FRAMES = 8, 24, 20
+# the SD-VAE and the CLIP tower on the card against the same on the CPU,
+# each output as max |card - CPU| / max |CPU|: fp32 both sides (TF32 off),
+# so only summation order differs.  The first run on the H100 (H100 80GB
+# HBM3, 700 W) read 2.0e-6 to 3.9e-6 on the VAE's mean, logvar, sample and
+# decode and 1.9e-6 on the tower; a convolution or matmul lowered to TF32
+# (10-bit mantissa) would err near 2^-11 = 4.9e-4 of its values.  The
+# limits sit about 8x above the readings and 16x below TF32
+TOL_VAE = 3e-5
+TOL_CLIP = 2e-5
 
 
 def fail(msg):
@@ -1141,11 +1187,13 @@ def sample_sde_phase(ckpt, tmp):
 
 
 def likelihood_phase(ckpt, tmp):
-    """``likelihood=true`` by Euler, 10 steps, batch 4: each of the 9 drift
-    evaluations runs the model forward (remat: K1 twice a layer) and its
-    vector-Jacobian product (K2 once a layer)."""
+    """``likelihood=true`` by Euler, 10 steps, batch 4, scoring the starting
+    noise (``data=synthetic`` has no validation split): each of the 9
+    drift evaluations runs the model forward (remat: K1 twice a layer) and
+    its vector-Jacobian product (K2 once a layer)."""
     res, calls, k1, k2 = run_sample_cli("sample CLI likelihood", [
-        f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "likelihood=true",
+        f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "data=synthetic",
+        "likelihood=true",
         "ode.sampling_method=euler", "ode.num_sampling_steps=10",
         f"offline_sample_local_bs={LIK_BATCH}",
         f"num_fid_samples={LIK_BATCH}", f"sample_dir={tmp}"])
@@ -1532,6 +1580,450 @@ def s1024_sample_phase(gen, tmp):
     return out
 
 
+# ------------------------------------------------------------ the data path --
+
+def random_vae_state_dict(seed):
+    """A diffusers-layout SD-VAE state dict with random weights, made on the
+    CPU from ``seed`` as ``vae_jax.random_params`` makes them: convolutions
+    He-normal, q / k / v / out 1/sqrt(c)-normal, biases 0, norms 1 and 0."""
+    import torch
+    from zigma_tpu_torch.data.sd_vae import AutoencoderKL
+    g = torch.Generator().manual_seed(seed)
+    model = AutoencoderKL()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.ndim == 1:
+                p.fill_(1.0)
+            else:
+                fan_in = p[0].numel()
+                gain = 2.0 if p.ndim == 4 else 1.0
+                p.copy_(torch.randn(p.shape, generator=g)
+                        * math.sqrt(gain / fan_in))
+    return model.state_dict()
+
+
+def random_clip_tower(seed):
+    """The CLIP ViT-L/14 text tower with random weights on the CPU, as
+    ``clip_jax.random_params`` makes them."""
+    import torch
+    from zigma_tpu_torch.data.clip_text import CLIPTextTower
+    g = torch.Generator().manual_seed(seed)
+    tower = CLIPTextTower()
+    with torch.no_grad():
+        for name, p in tower.named_parameters():
+            if "layer_norm" in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif "embedding" in name:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+            elif name.endswith("bias"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(torch.randn(p.shape, generator=g)
+                        / math.sqrt(p.shape[1]))
+    return tower.eval().requires_grad_(False)
+
+
+def count_flops(model, fn):
+    """Multiply-add FLOPs of the Conv2d / Linear layers and the attention
+    products that ``fn()`` runs through ``model`` (forward hooks)."""
+    import torch
+    from zigma_tpu_torch.data.clip_text import CLIPAttention
+    from zigma_tpu_torch.data.sd_vae import Attention
+    total = [0]
+
+    def hook(m, inputs, out):
+        if isinstance(m, torch.nn.Conv2d):
+            k = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+            total[0] += 2 * out.numel() * k
+        elif isinstance(m, torch.nn.Linear):
+            total[0] += 2 * out.numel() * m.in_features
+        elif isinstance(m, Attention):  # QK^T and PV over every position
+            B, C, H, W = out.shape
+            total[0] += 2 * 2 * B * (H * W) ** 2 * C
+        elif isinstance(m, CLIPAttention):  # causal: half the products
+            B, L, D = out.shape
+            total[0] += 2 * B * L * L * D
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear, Attention,
+                                 CLIPAttention))]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def vae_clip_phase(tmp):
+    """The SD-VAE and the CLIP text tower at full width with random weights:
+    the VAE from a diffusers-layout file through ``VAECodec`` (as the CLIs
+    load it), encode (mean, logvar, a posterior sample) and decode of 2
+    256^2 images on the card against the CPU with the same weights, inputs
+    and noise; the tower on 16 x 77 token ids the same way; their times on
+    the card (VAE at batch 16, and a 1024^2 decode at batch 1) beside the
+    fp32 bound.  Sets ``ZIGMA_VAE_WEIGHTS`` for the phases after it."""
+    import torch
+    from zigma_tpu_torch.data import VAECodec
+    from zigma_tpu_torch.data.sd_vae import AutoencoderKL
+
+    wdir = os.path.join(tmp, "sd-vae")
+    os.makedirs(wdir)
+    weights = os.path.join(wdir, "diffusion_pytorch_model.bin")
+    sd = random_vae_state_dict(VAE_SEED)
+    torch.save(sd, weights)
+    os.environ["ZIGMA_VAE_WEIGHTS"] = weights
+    codec = VAECodec(device="cuda")
+    vae = codec.vae
+    cpu_vae = AutoencoderKL.from_state_dict(sd).eval()
+    g = torch.Generator().manual_seed(11)
+    x = torch.rand(2, 3, 256, 256, generator=g) * 2 - 1
+    noise = torch.randn(2, 4, 32, 32, generator=g)
+    out = {}
+    for dev, net in (("cuda", vae), ("cpu", cpu_vae)):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            mean, logvar = net.encode(x.to(dev))
+            sample = net.sample(mean, logvar, noise.to(dev))
+            dec = net.decode(mean)
+        out[dev] = {k: v.float().cpu() for k, v in (
+            ("mean", mean), ("logvar", logvar), ("sample", sample),
+            ("decode", dec))}
+        if dev == "cpu":
+            cpu_s = time.perf_counter() - t0
+    vae_err = {k: rel_err(out["cuda"][k], out["cpu"][k])[1]
+               for k in out["cpu"]}
+    print(f"SD-VAE (scale 1, {sum(v.numel() for v in sd.values()) / 1e6:.1f} "
+          f"M params, fp32, TF32 off) from {os.path.basename(weights)}: "
+          f"2 x 256^2 encode + decode, card vs CPU ({cpu_s:.1f} s on the "
+          f"CPU), max |card - CPU| / max |CPU|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in vae_err.items())
+          + f"; limit {TOL_VAE}", flush=True)
+    if not all(math.isfinite(v) and v <= TOL_VAE for v in vae_err.values()):
+        fail(f"SD-VAE card vs CPU: {vae_err}, limit {TOL_VAE}")
+    if tuple(out["cuda"]["decode"].shape) != (2, 3, 256, 256):
+        fail(f"SD-VAE decode shape {tuple(out['cuda']['decode'].shape)}")
+
+    gc = torch.Generator(device="cuda").manual_seed(12)
+    x16 = torch.rand(BATCH, 3, 256, 256, generator=gc, device="cuda") * 2 - 1
+    z16 = torch.randn(BATCH, 4, 32, 32, generator=gc, device="cuda")
+    times = {}
+    with torch.inference_mode():
+        for what, fn in (("encode", lambda: vae.encode(x16)),
+                         ("decode", lambda: vae.decode(z16))):
+            flops = count_flops(vae, fn)
+            ms = cuda_ms(fn, reps=3, groups=3)
+            times[what] = dict(ms=ms, flops=flops,
+                               bound_ms=flops / FP32_FLOPS_PER_S * 1e3)
+        z1024 = torch.randn(1, 4, 128, 128, generator=gc, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fn = lambda: vae.decode(z1024)  # noqa: E731
+        flops = count_flops(vae, fn)
+        ms = cuda_ms(fn, reps=1, groups=3)
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        times["decode 1024^2 x 1"] = dict(
+            ms=ms, flops=flops, bound_ms=flops / FP32_FLOPS_PER_S * 1e3,
+            peak_gb=peak_gb)
+    for what, t in times.items():
+        print(f"SD-VAE {what}{'' if '1024' in what else f' x {BATCH} at 256^2'}"
+              f": {t['ms']:.2f} ms, {t['flops'] / 1e12:.3f} TFLOP, "
+              f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s, fp32 bound "
+              f"{t['bound_ms']:.2f} ms ({t['bound_ms'] / t['ms'] * 100:.1f}% "
+              f"of it)" + (f"; {t['peak_gb']:.2f} GB above what was held"
+                           if "peak_gb" in t else ""), flush=True)
+
+    tower_cpu = random_clip_tower(CLIP_SEED)
+    tower = random_clip_tower(CLIP_SEED).cuda()
+    ids = torch.randint(0, tower.cfg["vocab"], (BATCH, N_CTX), generator=g)
+    with torch.inference_mode():
+        ref = tower_cpu(ids)
+        got = tower(ids.cuda()).cpu()
+        clip_err = rel_err(got, ref)[1]
+        idc = ids.cuda()
+        clip_flops = count_flops(tower, lambda: tower(idc))
+        clip_ms = cuda_ms(lambda: tower(idc), reps=5, groups=3)
+    print(f"CLIP ViT-L/14 text tower ({sum(p.numel() for p in tower.parameters()) / 1e6:.1f}"
+          f" M params, fp32) on {BATCH} x {N_CTX} token ids: output "
+          f"{tuple(got.shape)}, max |card - CPU| / max |CPU| {clip_err:.3e} "
+          f"(limit {TOL_CLIP}); {clip_ms:.3f} ms, {clip_flops / 1e9:.1f} "
+          f"GFLOP, fp32 bound {clip_flops / FP32_FLOPS_PER_S * 1e3:.3f} ms",
+          flush=True)
+    if tuple(got.shape) != (BATCH, N_CTX, D_CTX):
+        fail(f"CLIP output shape {tuple(got.shape)}")
+    if not clip_err <= TOL_CLIP:
+        fail(f"CLIP card vs CPU: {clip_err}, limit {TOL_CLIP}")
+    del cpu_vae, tower_cpu
+    return codec, tower, dict(
+        vae_err=vae_err, clip_err=clip_err, clip_ms=clip_ms,
+        clip_flops=clip_flops, **{f"vae_{k}": v for k, v in times.items()})
+
+
+def write_images(root, n, seed):
+    """``n`` seeded RGB PNGs of mixed sizes (smooth noise, so they compress
+    like photographs), for prepare_data's resize and center crop."""
+    import numpy as np
+    from PIL import Image
+    os.makedirs(root)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        h, w = IMAGE_SIZES[i % len(IMAGE_SIZES)]
+        small = rng.integers(0, 256, (h // 8, w // 8, 3), dtype=np.uint8)
+        Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+            os.path.join(root, f"img_{i:04d}.png"))
+
+
+def prepare_shards_phase(tmp, codec, tower):
+    """The three shard layouts the data configs read, from seeded inputs:
+    churches (``cli.prepare_data --codec sd-vae --keep-jpeg``: VAE latents
+    of the center-cropped 256^2 images and the JPEG), coco (those members
+    plus 5 captions' CLIP features a sample, ``caption_feature.npy``, from
+    the tower on seeded token ids) and ucf101 (``FeaturePrepDataset``: 20
+    frames of a seeded 240 x 320 clip, transformed and VAE-encoded, as
+    ``frame_feature256.npy``, with ``cls_id.cls``).  Returns the three
+    shard directories and the times."""
+    import random
+
+    import numpy as np
+    import torch
+    from zigma_tpu_torch.cli import prepare_data as prep_cli
+    from zigma_tpu_torch.data import FeaturePrepDataset, tar_samples
+
+    imgs, dirs = os.path.join(tmp, "images"), {}
+    write_images(imgs, N_IMAGES, 0)
+    dirs["churches"] = os.path.join(tmp, "churches_wds")
+    t0 = time.perf_counter()
+    n = prep_cli.main(["--images", imgs, "--out", dirs["churches"],
+                       "--image-size", "256", "--shard-size", str(SHARD_SIZE),
+                       "--codec", "sd-vae", "--keep-jpeg",
+                       "--batch-size", str(BATCH)])
+    prep_s = time.perf_counter() - t0
+    shards = sorted(os.listdir(dirs["churches"]))
+    want = [f"train-{i:06d}.tar" for i in range(N_SHARDS)]
+    if n != N_IMAGES or shards != want:
+        fail(f"prepare_data wrote {n} samples in {shards}, expected "
+             f"{N_IMAGES} in {want}")
+
+    dirs["coco"] = os.path.join(tmp, "coco_wds")
+    g = torch.Generator().manual_seed(13)
+    writer = prep_cli.ShardWriter(dirs["coco"], shard_size=SHARD_SIZE)
+    t0 = time.perf_counter()
+    first = None
+    for shard in shards:
+        samples = list(tar_samples(os.path.join(dirs["churches"], shard)))
+        ids = torch.randint(0, tower.cfg["vocab"],
+                            (len(samples) * N_CAPTIONS, N_CTX), generator=g)
+        with torch.inference_mode():
+            feats = tower(ids.cuda()).float().cpu().numpy().reshape(
+                len(samples), N_CAPTIONS, N_CTX, -1)
+        for s, f in zip(samples, feats):
+            latent = np.load(io.BytesIO(s["img_feature256.npy"]))
+            if first is None:
+                first = latent
+            writer.write(s["__key__"], {
+                "img_feature256.npy": s["img_feature256.npy"],
+                "image.jpg": s["image.jpg"],
+                "caption_feature.npy": prep_cli._npy_bytes(f)})
+    writer.close()
+    coco_s = time.perf_counter() - t0
+    if first.shape != (4, 32, 32) or not np.isfinite(first).all():
+        fail(f"prepare_data latents {first.shape}")
+
+    dirs["ucf101"] = os.path.join(tmp, "ucf101_wds")
+    csv = os.path.join(tmp, "ucf101.csv")
+    with open(csv, "w") as f:
+        f.writelines(f"v{i}.avi,video {i},{i % 101}\n"
+                     for i in range(N_VIDEOS))
+    rng = np.random.default_rng(14)
+    clips = {f"v{i}.avi": np.repeat(np.repeat(rng.integers(
+        0, 256, (UCF_SRC_FRAMES, 3, 30, 40), dtype=np.uint8), 8, 2), 8, 3)
+        for i in range(N_VIDEOS)}
+    random.seed(0)  # the transform's random flip
+    ds = FeaturePrepDataset(csv, read_video_fn=clips.__getitem__,
+                            encode_fn=codec.encode, num_frames=UCF_FRAMES)
+    writer = prep_cli.ShardWriter(dirs["ucf101"],
+                                 shard_size=N_VIDEOS // N_SHARDS)
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        item = ds[i]
+        if item["frame_feature256"].shape != (UCF_FRAMES, 4, 32, 32):
+            fail(f"ucf101 latents {item['frame_feature256'].shape}")
+        writer.write(f"{i:08d}", {
+            "frame_feature256.npy": prep_cli._npy_bytes(
+                item["frame_feature256"]),
+            "cls_id.cls": str(item["cls_id"]).encode(),
+            "cls_name.json": json.dumps(item["text"]).encode()})
+    writer.close()
+    ucf_s = time.perf_counter() - t0
+    print(f"prepare_data --codec sd-vae: {N_IMAGES} PNGs of sizes "
+          f"{IMAGE_SIZES} -> {len(shards)} churches shards in {prep_s:.2f} s "
+          f"({N_IMAGES / prep_s:.1f} images/s, PNG decode, crop, VAE encode "
+          f"on the card, JPEG, tar); coco shards with {N_CAPTIONS} captions' "
+          f"CLIP features a sample in {coco_s:.2f} s; ucf101 shards, "
+          f"{N_VIDEOS} clips of {UCF_FRAMES} frames, in {ucf_s:.2f} s",
+          flush=True)
+    return dirs, dict(prepare_images_per_s=N_IMAGES / prep_s)
+
+
+def shard_args(data, root):
+    return [f"data={data}", f"data.tar_base={root}",
+            f"data.train.shards={DATA_SHARDS}",
+            f"data.validation.shards={DATA_SHARDS}", "data.sample_fid_n=0"]
+
+
+def loader_rate(args, batch, n_batches=16):
+    """Samples/s of ``cli.train.wds_batches`` alone (the prefetch thread
+    decoding and collating; nothing on the card), after one batch."""
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli import train as train_cli
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 [*args, f"data.batch_size={batch}"])
+    gen = train_cli.wds_batches(cfg)
+    next(gen)
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        b = next(gen)
+    rate = n_batches * batch / (time.perf_counter() - t0)
+    gen.close()
+    return rate, {k: tuple(v.shape) for k, v in b.items()}
+
+
+def shard_train_phase(dirs, tmp):
+    """``cli.train`` from the three layouts, TRAIN_STEPS steps each, with
+    the exact K1 / K2 counts; the loaders' rates alone."""
+    out = {}
+    for tag, data, model_args, batch, unit in (
+            ("churches", "churches256", ["model=zigzag8_b1_pe2"], BATCH,
+             "images"),
+            ("coco", "coco", ["model=zigzag8_b1_pe2"], BATCH, "images"),
+            ("ucf101", "ucf101", ["model=3d_zigzag8sst_b2",
+                                  "model.params.class_dropout_prob=0.1"],
+             VIDEO_BATCH, "videos")):
+        args = [*model_args, *shard_args(data, dirs[tag])]
+        rate, shapes = loader_rate(args, batch)
+        print(f"{tag} loader alone, batch {batch}: {rate:.1f} samples/s; "
+              f"batch {shapes}", flush=True)
+        state, ckpt, tr = train_cli_phase(f"{tag} shards", args, batch,
+                                          2 * DEPTH, DEPTH, tmp, unit)
+        out[tag] = dict(tr, loader_samples_per_s=rate, ckpt=ckpt, args=args)
+        if tag == "churches":  # for the profile of a step from shards
+            out[tag]["state"] = state
+        del state
+    return out
+
+
+def shard_step_fn(state, args):
+    """One flagship training step with its batch taken from the shards
+    (the loader's prefetch thread running), for the profile."""
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli import train as train_cli
+    from zigma_tpu_torch.train import (LATENT_SCALE, make_diffusion_loss_fn,
+                                       train_step)
+    from zigma_tpu_torch.transport import create_transport
+    import torch
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 [*args, f"data.batch_size={BATCH}"])
+    gen = train_cli.wds_batches(cfg)
+    loss_fn = make_diffusion_loss_fn(state.model, create_transport(),
+                                     latent_scale=LATENT_SCALE)
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = torch.device("cuda")
+    return lambda: train_step(state, loss_fn,
+                              train_cli._to_device(next(gen), dev),
+                              step_gen)["loss"].item()
+
+
+def decoded_sample_phase(gen, ckpt, vckpt, dirs, tmp):
+    """Sampling to pixels through the CLIs: the flagship with
+    ``decode_latents=true vae_kind=sd-vae`` (2 batches of 16, 50-step Euler:
+    256x256 RGB PNGs, K1 24 x 49 a batch), the video model guided (cfg 4)
+    and decoded (one batch of 4: 16-frame 256x256 GIFs), the likelihood on
+    the churches validation split (K1 48 x 9, K2 24 x 9), and
+    ``vae_kind=sd-vae`` without weights, which must raise."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from zigma_tpu_torch.cli import sample as sample_cli
+
+    res, calls, k1, k2 = run_sample_cli("flagship decoded sample CLI", [
+        f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "decode_latents=true",
+        "vae_kind=sd-vae", "sample_mode=ODE", "ode.sampling_method=euler",
+        f"ode.num_sampling_steps={STEPS}", f"offline_sample_local_bs={BATCH}",
+        f"num_fid_samples={N_BATCHES * BATCH}", f"sample_dir={tmp}/decoded"])
+    pngs = sorted(f for f in os.listdir(res["out_dir"]) if f.endswith(".png"))
+    img = np.asarray(Image.open(os.path.join(res["out_dir"], pngs[0])))
+    img_s = BATCH / res["batch_seconds"][1]
+    dec_ms = 1e3 * res["decode_seconds"][1]
+    print(f"flagship 50-step Euler + SD-VAE decode, batch {BATCH}: "
+          f"{img_s:.4f} images/s (second batch; its decode {dec_ms:.1f} ms "
+          f"on the host clock, latents to numpy pixels); {len(pngs)} PNGs "
+          f"of {img.shape} {img.dtype}, pixel std {img.std():.1f}",
+          flush=True)
+    if len(pngs) != N_BATCHES * BATCH or img.shape != (256, 256, 3):
+        fail(f"decoded sampling wrote {len(pngs)} PNGs of {img.shape}")
+    if k1 != N_BATCHES * DEPTH * (STEPS - 1) or k2 != 0:
+        fail(f"decoded sampling: K1 / K2 {(k1, k2)}")
+    out = dict(images_per_s=img_s, decode_ms=dec_ms, k1=k1)
+
+    vck = perturbed_ckpt(gen, vckpt, os.path.join(tmp, "ucf101.pt"))
+    res, calls, vk1, vk2 = run_sample_cli("video decoded sample CLI (cfg 4)", [
+        f"ckpt={vck}", "model=3d_zigzag8sst_b2",
+        "model.params.class_dropout_prob=0.1",
+        *shard_args("ucf101", dirs["ucf101"]), "cfg_scale=4",
+        "decode_latents=true", "vae_kind=sd-vae", "sample_mode=ODE",
+        "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
+        f"offline_sample_local_bs={VIDEO_BATCH}",
+        f"num_fid_samples={VIDEO_BATCH}", f"sample_dir={tmp}/vdecoded"])
+    arr = np.load(os.path.join(res["out_dir"], "video_0_0.npy"))
+    gifs = sorted(f for f in os.listdir(res["out_dir"]) if f.endswith(".gif"))
+    frame = Image.open(os.path.join(res["out_dir"], gifs[0]))
+    print(f"video guided + decode, batch {VIDEO_BATCH}: "
+          f"{res['batch_seconds'][0]:.2f} s (decode "
+          f"{res['decode_seconds'][0]:.2f} s); pixels {arr.shape}; "
+          f"{len(gifs)} GIFs of {frame.n_frames} frames, {frame.size}",
+          flush=True)
+    if arr.shape != (VIDEO_BATCH, 16, 3, 256, 256) or len(gifs) != VIDEO_BATCH:
+        fail(f"decoded video sampling: {arr.shape}, {gifs}")
+    if vk1 != DEPTH * (STEPS - 1) or vk2 != 0:
+        fail(f"decoded video sampling: K1 / K2 {(vk1, vk2)}")
+    out["video_k1"] = vk1
+
+    res, calls, lk1, lk2 = run_sample_cli("likelihood on the churches "
+                                          "validation split", [
+        f"ckpt={ckpt}", "model=zigzag8_b1_pe2",
+        *shard_args("churches256", dirs["churches"]), "likelihood=true",
+        "ode.sampling_method=euler", "ode.num_sampling_steps=10",
+        f"offline_sample_local_bs={LIK_BATCH}",
+        f"num_fid_samples={LIK_BATCH}", f"sample_dir={tmp}/lik"])
+    (logp,) = res["logp"]
+    print(f"likelihood of {LIK_BATCH} validation latents: logp "
+          f"{[round(float(v), 2) for v in logp]}; validation batches "
+          f"{res['real_batches']}; K1 {lk1}, K2 {lk2}", flush=True)
+    if res["real_batches"] != 1 or not np.isfinite(logp).all():
+        fail(f"likelihood on data: {res['real_batches']} batches, {logp}")
+    if lk1 != 2 * DEPTH * 9 or lk2 != DEPTH * 9:
+        fail(f"likelihood on data: K1 / K2 {(lk1, lk2)}")
+    out.update(lik_k1=lk1, lik_k2=lk2)
+
+    saved = {k: os.environ.pop(k, None) for k in ("ZIGMA_VAE_WEIGHTS",
+                                                  "HF_HOME")}
+    os.environ["HF_HOME"] = os.path.join(tmp, "empty_hf_home")
+    try:
+        sample_cli.main([f"ckpt={ckpt}", "model=zigzag8_b1_pe2",
+                         "decode_latents=true", "vae_kind=sd-vae",
+                         f"sample_dir={tmp}/never"])
+        fail("vae_kind=sd-vae without weights did not raise")
+    except RuntimeError as e:
+        print(f"vae_kind=sd-vae without weights raised: {e}", flush=True)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    return out
+
+
 def _kind(key):
     k = key.lower()
     return ("K1 selective scan fwd" if "selective_scan_fwd" in k else
@@ -1551,7 +2043,7 @@ def _kind(key):
 
 def profile_phase(what, fn):
     """Device time of one call of ``fn`` (after one warm-up call), by kind
-    and by kernel."""
+    and by kernel.  Returns (device busy ms, wall ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1588,6 +2080,7 @@ def profile_phase(what, fn):
         print(f"{e.self_device_time_total / 1e3:15.3f} "
               f"{100 * e.self_device_time_total / total:6.1f}% {e.count:6d}  "
               f"{e.key[:90]}", flush=True)
+    return total / 1e3, wall_us / 1e3
 
 
 def train_step_fn(state, gen, x_shape, num_classes=-1, text=None):
@@ -1711,6 +2204,30 @@ def main():
         ssd = ssd_truth_phase(gen)
         phase("1024^2 sampling (s1024_zigzag8_b2, patch 2 and 1)")
         s1024 = s1024_sample_phase(gen, tmp)
+        phase("SD-VAE and CLIP text tower (full width, random weights)")
+        codec, tower, vc = vae_clip_phase(tmp)
+        from zigma_tpu_torch.data import tar_samples
+        from zigma_tpu_torch.native import available as native_available
+        tar_samples.served.update(native=0, tarfile=0)
+        phase("prepare data (churches, coco and ucf101 shard layouts)")
+        dirs, prep = prepare_shards_phase(tmp, codec, tower)
+        del tower
+        phase("train from shards (churches, coco, ucf101)")
+        sh = shard_train_phase(dirs, tmp)
+        print("steps/s from shards against synthetic data in this run: "
+              + "; ".join(
+                  f"{k} {sh[k]['steps_per_s']:.4f} against {syn['steps_per_s']:.4f}"
+                  f" ({100 * (sh[k]['steps_per_s'] / syn['steps_per_s'] - 1):+.1f}%)"
+                  for k, syn in (("churches", tr), ("coco", ttr),
+                                 ("ucf101", vtr))), flush=True)
+        phase("sample to pixels (SD-VAE decode; likelihood on data)")
+        dec = decoded_sample_phase(gen, e2e["ckpt"], sh["ucf101"]["ckpt"],
+                                   dirs, tmp)
+        served = dict(tar_samples.served)
+        print(f"tar shards served since the data phases began: {served} "
+              f"(native reader built: {native_available()})", flush=True)
+        if not native_available() or served["tarfile"] or not served["native"]:
+            fail(f"the native tar reader did not serve every shard: {served}")
         phase("profile")
 
         def forward():
@@ -1719,9 +2236,17 @@ def main():
 
         profile_phase("one flagship forward (sampling)", forward)
         del model
-        profile_phase(f"one flagship training step (batch {BATCH})",
-                      train_step_fn(state, gen, (BATCH, 4, 32, 32)))
+        syn_busy, syn_wall = profile_phase(
+            f"one flagship training step (batch {BATCH})",
+            train_step_fn(state, gen, (BATCH, 4, 32, 32)))
         del state
+        sh_busy, sh_wall = profile_phase(
+            f"one flagship training step from churches shards (batch "
+            f"{BATCH}, the loader's thread running)",
+            shard_step_fn(sh["churches"].pop("state"), sh["churches"]["args"]))
+        print(f"device idle share of a flagship step: synthetic "
+              f"{100 * (1 - syn_busy / syn_wall):.1f}%, from shards "
+              f"{100 * (1 - sh_busy / sh_wall):.1f}%", flush=True)
         profile_phase(f"one video training step (batch {VIDEO_BATCH})",
                       train_step_fn(vstate, gen, (VIDEO_BATCH, 16, 4, 32, 32),
                                     101))
@@ -1756,7 +2281,13 @@ def main():
                                "text_train": ttr["k1"],
                                "text_sample": ts["k1"],
                                "sample_1024_p2": s1024["p2"]["k1"],
-                               "sample_1024_p1": s1024["p1"]["k1"]},
+                               "sample_1024_p1": s1024["p1"]["k1"],
+                               "train_churches_shards": sh["churches"]["k1"],
+                               "train_coco_shards": sh["coco"]["k1"],
+                               "train_ucf101_shards": sh["ucf101"]["k1"],
+                               "sample_decoded": dec["k1"],
+                               "video_sample_decoded": dec["video_k1"],
+                               "likelihood_validation": dec["lik_k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
@@ -1768,7 +2299,11 @@ def main():
              launches=tr["k2"],
              launches_by_path={"train": tr["k2"], "likelihood": lik["k2"],
                                "video_train": vtr["k2"],
-                               "text_train": ttr["k2"]},
+                               "text_train": ttr["k2"],
+                               "train_churches_shards": sh["churches"]["k2"],
+                               "train_coco_shards": sh["coco"]["k2"],
+                               "train_ucf101_shards": sh["ucf101"]["k2"],
+                               "likelihood_validation": dec["lik_k2"]},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
@@ -1792,7 +2327,18 @@ def main():
           f"chunked bf16 forward {ssd['fwd_ms']:.3f} ms, forward + backward "
           f"{ssd['fwd_bwd_ms']:.3f} ms; 1024^2 sampling "
           f"{s1024['p2']['images_per_s']:.4f} (patch 2) and "
-          f"{s1024['p1']['images_per_s']:.4f} (patch 1) images/s")
+          f"{s1024['p1']['images_per_s']:.4f} (patch 1) images/s; "
+          f"SD-VAE encode / decode x {BATCH} at 256^2 "
+          f"{vc['vae_encode']['ms']:.2f} / {vc['vae_decode']['ms']:.2f} ms, "
+          f"1024^2 decode {vc['vae_decode 1024^2 x 1']['ms']:.2f} ms; CLIP "
+          f"{vc['clip_ms']:.3f} ms; prepare_data "
+          f"{prep['prepare_images_per_s']:.1f} images/s; from shards: "
+          + "; ".join(f"{k} training {v['steps_per_s']:.4f} steps/s, loader "
+                      f"{v['loader_samples_per_s']:.1f} samples/s"
+                      for k, v in sh.items())
+          + f" (synthetic {tr['steps_per_s']:.4f} steps/s); decoded sampling "
+          f"{dec['images_per_s']:.4f} images/s (undecoded "
+          f"{e2e['images_per_s']:.4f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

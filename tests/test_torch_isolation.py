@@ -68,3 +68,33 @@ def test_no_jax_import_in_the_source():
                     for n in names if _forbidden(n)]
     assert len(_port_files()) > 20
     assert bad == []
+
+
+def test_no_transformers_or_diffusers_outside_the_tokenizer():
+    """The card has neither package: the port imports no ``diffusers`` and
+    ``transformers`` only for the CLIP tokenizer, inside the function that
+    makes the embedder (``data/text.py``)."""
+    bad = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        lazy = set()
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                lazy |= {id(n) for n in ast.walk(fn)}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                allowed = (top == "transformers" and id(node) in lazy
+                           and rel == os.path.join("zigma_tpu_torch", "data",
+                                                   "text.py"))
+                if top in ("transformers", "diffusers") and not allowed:
+                    bad.append(f"{rel}: {n}")
+    assert bad == []

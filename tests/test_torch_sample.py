@@ -106,12 +106,18 @@ def test_sample_cli_writes_pngs_on_cpu(tmp_path):
     assert Image.open(os.path.join(res["out_dir"], pngs[0])).size == (8, 8)
 
 
-def test_sample_cli_refuses_cpu_unless_asked(tmp_path):
+def test_sample_cli_refuses_cpu_unless_asked(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")
     with pytest.raises(RuntimeError, match="device=cpu"):
         sample_cli.main(_overrides(tmp_path, "unused.pt"))
-    for extra in (["decode_latents=true"], ["metrics=[fid]"]):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            sample_cli.main(_overrides(tmp_path, "unused.pt")
-                            + ["device=cpu", "sample_mode=SDE", *extra])
+    with pytest.raises(NotImplementedError, match="later slice"):
+        sample_cli.main(_overrides(tmp_path, "unused.pt")
+                        + ["device=cpu", "sample_mode=SDE", "metrics=[fid]"])
+    # decoding is ported: the SD-VAE without local weights raises first
+    monkeypatch.delenv("ZIGMA_VAE_WEIGHTS", raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
+    with pytest.raises(RuntimeError, match="not found locally"):
+        sample_cli.main(_overrides(tmp_path, "unused.pt")
+                        + ["device=cpu", "decode_latents=true",
+                           "vae_kind=sd-vae"])

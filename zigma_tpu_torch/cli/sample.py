@@ -7,17 +7,25 @@ bf16 inference cast, builds the configured sampler -- ODE (euler, heun or
 dopri5, the ``ode`` group), SDE (``sample_mode=SDE``, the ``sde`` group) or
 the ODE likelihood (``likelihood=true``) -- and draws ``num_fid_samples``
 samples in batches of ``offline_sample_local_bs``, with classifier-free
-guidance when ``cfg_scale != 1``.  Images are written as PNGs of the first
-three latent channels with the JAX package's uint8 rule; video latents as
+guidance when ``cfg_scale != 1``.
+
+``decode_latents=true`` decodes the samples through the latent codec
+(``vae_kind``: ``sd-vae`` needs local VAE weights and raises without them,
+``auto`` falls back to the identity with a warning), video latents frame by
+frame.  Images are written as PNGs (decoded pixels, or the first three
+latent channels) with the JAX package's uint8 rule; videos as
 ``video_{it}_{rank}.npy`` per batch and one animated ``.gif`` per sample.
-The likelihood has no data loader here, so it scores the Gaussian noise it
-starts from (the reference's behaviour, with the JAX CLI's warning), and a
-text model samples with zero (null) caption features, as the JAX CLI does
-without a loader (guidance then guides against the same zeros).
+
+When the data group has a ``validation`` split and is not synthetic, its
+shards serve as real batches, as in the JAX CLI: the likelihood scores
+them (latents times 0.18215) and a text model takes their caption
+features.  Without one the likelihood scores the Gaussian noise it starts
+from (the reference's behaviour, with the JAX CLI's warning), and a text
+model samples with zero (null) caption features.
 
 Runs on CUDA unless ``device=cpu`` is given; asking for CUDA on a machine
-without it raises.  VAE decoding and metrics are later slices of the port
-and raise ``NotImplementedError``.
+without it raises.  Metrics are a later slice of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from zigma_tpu_torch.config import Config, load_config
+from zigma_tpu_torch.data.vae import decode_maybe_video, get_codec
 from zigma_tpu_torch.device import resolve_device
 from zigma_tpu_torch.models import ZigMa
 from zigma_tpu_torch.train.state import LATENT_SCALE
@@ -117,19 +126,20 @@ def build_sample_fn(cfg: Config, sampler: Sampler):
 
 
 def _check_supported(cfg: Config):
-    later = [k for k in ("decode_latents", "metrics") if cfg.get(k)]
-    if later:
+    if cfg.get("metrics"):
         raise NotImplementedError(
-            f"{', '.join(later)}: lands in a later slice of the port")
+            "metrics (M7): lands in a later slice of the port")
 
 
 def main(argv=None) -> dict:
     """Run the sampler.  Returns ``{"out_dir", "kind", "batch_seconds",
-    "n_nonfinite", "model_calls", "dopri5", "logp"}``: each batch's
-    host-clock seconds (noise to samples on the host), the count of
-    non-finite sample values, each batch's model calls (a guided call
-    runs one doubled batch), dopri5's accepted / rejected steps a batch
-    and the likelihood's logp a batch (numpy)."""
+    "decode_seconds", "n_nonfinite", "model_calls", "dopri5", "logp",
+    "real_batches"}``: each batch's host-clock seconds (noise to samples,
+    decoded when asked, on the host) and the decode's share of them, the
+    count of non-finite output values, each batch's model calls (a guided
+    call runs one doubled batch), dopri5's accepted / rejected steps a
+    batch, the likelihood's logp a batch (numpy) and the number of
+    validation batches used."""
     argv = list(sys.argv[1:] if argv is None else argv)
     config_dir = DEFAULT_CONFIG_DIR
     if argv and argv[0].startswith("--config-dir="):
@@ -141,6 +151,9 @@ def main(argv=None) -> dict:
     if not path:
         raise ValueError("sampling requires ckpt=<path>")
     logger = create_logger(None, "zigma_torch.sample")
+    codec = None  # first: a missing VAE fails before any sampling
+    if cfg.get("decode_latents"):
+        codec = get_codec(cfg.get("vae_kind", "auto"), device=device)
 
     model = build_model(cfg, device=device)
     n_classes = int(cfg.data.get("num_classes", -1))
@@ -187,10 +200,39 @@ def main(argv=None) -> dict:
             return model(x, t, y)
         return fn
 
+    # the validation split, started only when a batch is first asked for
+    real_gen = None
+    if cfg.data.get("validation") and not cfg.data.get("synthetic"):
+        from zigma_tpu_torch.cli.train import wds_batches
+
+        real_gen = wds_batches(cfg, split="validation")
+    res = dict(out_dir=out_dir, kind=kind, batch_seconds=[],
+               decode_seconds=[], n_nonfinite=0, model_calls=[], dopri5=[],
+               logp=[], real_batches=0)
+
+    def next_real():
+        """The next validation batch, or None once the finite split is
+        exhausted (or there is none)."""
+        nonlocal real_gen
+        if real_gen is None:
+            return None
+        try:
+            batch = next(real_gen)
+        except StopIteration:
+            logger.warning(
+                "validation split exhausted; remaining iterations run "
+                "without real batches (text conditioning falls back to "
+                "null features)")
+            real_gen = None
+            return None
+        res["real_batches"] += 1
+        return batch
+
+    def real(arr):
+        return torch.as_tensor(arr).to(device, torch.float32)
+
     from PIL import Image
 
-    res = dict(out_dir=out_dir, kind=kind, batch_seconds=[], n_nonfinite=0,
-               model_calls=[], dopri5=[], logp=[])
     made, it = 0, 0
     while made < num:
         t0 = time.perf_counter()
@@ -200,13 +242,30 @@ def main(argv=None) -> dict:
         y = None
         if n_classes > 0:
             y = torch.randint(0, n_classes, (bs,), generator=gen, device=device)
-        elif model.has_text:  # no caption loader: null (zero) features
-            y = torch.zeros((bs, model.n_context_token or 77,
-                             model.d_context), device=device)
+        elif model.has_text:
+            # caption features from the validation split when it has them,
+            # else null (zero) features
+            batch = next_real()
+            if batch is not None and batch.get("y") is not None:
+                y = real(batch["y"][:bs])
+                z = z[:y.shape[0]]
+            else:
+                y = torch.zeros((bs, model.n_context_token or 77,
+                                 model.d_context), device=device)
         if kind == "likelihood":
-            logger.warning(
-                "likelihood mode without a validation loader scores "
-                "gaussian noise, not data (reference parity quirk)")
+            batch = next_real()  # the likelihood scores data where it can
+            if batch is not None:
+                z = real(batch["x"][:bs])
+                if latent_scale:
+                    z = z * latent_scale
+                if "y" in batch and y is not None:
+                    y = torch.as_tensor(batch["y"][:bs]).to(device)
+                    if y.is_floating_point():
+                        y = y.float()
+            else:
+                logger.warning(
+                    "likelihood mode without a validation loader scores "
+                    "gaussian noise, not data (reference parity quirk)")
             with torch.enable_grad():
                 logp, samples = sample_fn(z, model_fn(y), generator=gen,
                                           stats=stats)
@@ -222,6 +281,10 @@ def main(argv=None) -> dict:
             if latent_scale:
                 samples = samples / latent_scale
             arr = samples.float().cpu().numpy()
+        t_dec = time.perf_counter()
+        if codec is not None:  # video latents frame by frame
+            arr = decode_maybe_video(codec, arr)
+        res["decode_seconds"].append(time.perf_counter() - t_dec)
         res["batch_seconds"].append(time.perf_counter() - t0)
         res["model_calls"].append(calls[0])
         if stats:
@@ -238,7 +301,7 @@ def main(argv=None) -> dict:
             for i, img in enumerate(to_uint8_images(arr)):
                 Image.fromarray(np.transpose(img[:3], (1, 2, 0))).save(
                     os.path.join(out_dir, f"{it * bs + i:06d}.png"))
-        made += bs
+        made += arr.shape[0]
         it += 1
         logger.info("generated %d/%d (%.3f s, %d model calls)", made, num,
                     res["batch_seconds"][-1], calls[0])

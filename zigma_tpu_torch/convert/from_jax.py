@@ -21,6 +21,12 @@ use_pe 3: the per-layer ``pos_embed_{i}`` tables, or the stacked
 ``(depth, 1, n_pe, embed)`` ``pos_embed_layers`` of a scan-over-layers
 model, -> ``pos_embed_layers.{i}``.
 
+The SD-VAE (``vae_state_dict_from_jax``, trees of
+``zigma_tpu/data/vae_jax.py``) and the CLIP text tower
+(``clip_state_dict_from_jax``, trees of ``data/clip_jax.py``) go to the
+diffusers / Hugging Face names the port's modules carry (``data/sd_vae.py``,
+``data/clip_text.py``).
+
 Mamba-2 mixers (a block whose mixer has ``ssd``; the reference has no
 Mamba-2, so the names are the public ``mamba_ssm`` Mamba2 module's):
 
@@ -38,7 +44,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "vae_state_dict_from_jax",
+           "clip_state_dict_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -167,4 +174,87 @@ def state_dict_from_jax(params: dict) -> dict:
     _dense(sd, "final_layer.linear", fl["linear"])
     if p:
         raise ValueError(f"unconverted JAX params {sorted(p)}")
+    return sd
+
+
+# ------------------------------------------------------------ SD-VAE, CLIP ---
+
+def _vae_conv(sd: dict, name: str, p: dict):
+    sd[f"{name}.weight"] = _tensor(np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)))
+    sd[f"{name}.bias"] = _tensor(p["b"])
+
+
+def _affine(sd: dict, name: str, p: dict):
+    sd[f"{name}.weight"] = _tensor(p["scale"])
+    sd[f"{name}.bias"] = _tensor(p["bias"])
+
+
+def _vae_resnet(sd: dict, name: str, p: dict):
+    _affine(sd, f"{name}.norm1", p["norm1"])
+    _vae_conv(sd, f"{name}.conv1", p["conv1"])
+    _affine(sd, f"{name}.norm2", p["norm2"])
+    _vae_conv(sd, f"{name}.conv2", p["conv2"])
+    if "shortcut" in p:
+        _vae_conv(sd, f"{name}.conv_shortcut", p["shortcut"])
+
+
+def _vae_mid(sd: dict, name: str, p: dict):
+    _vae_resnet(sd, f"{name}.resnets.0", p["res1"])
+    _vae_resnet(sd, f"{name}.resnets.1", p["res2"])
+    a, pre = p["attn"], f"{name}.attentions.0"
+    _affine(sd, f"{pre}.group_norm", a["norm"])
+    for jax_name, name_ in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                            ("proj", "to_out.0")):
+        sd[f"{pre}.{name_}.weight"] = _tensor(np.asarray(a[jax_name]["w"]).T)
+        sd[f"{pre}.{name_}.bias"] = _tensor(a[jax_name]["b"])
+
+
+def vae_state_dict_from_jax(params: dict) -> dict:
+    """``vae_jax`` params (numpy leaves) -> the diffusers ``AutoencoderKL``
+    state dict of ``data.sd_vae``: conv kernels HWIO -> OIHW, attention
+    (in, out) -> Linear (out, in)."""
+    sd: dict = {}
+    for part, n_res, level in (("encoder", 2, "down"), ("decoder", 3, "up")):
+        p, pre = params[part], part
+        _vae_conv(sd, f"{pre}.conv_in", p["conv_in"])
+        _vae_mid(sd, f"{pre}.mid_block", p["mid"])
+        _affine(sd, f"{pre}.conv_norm_out", p["norm_out"])
+        _vae_conv(sd, f"{pre}.conv_out", p["conv_out"])
+        i = 0
+        while f"{level}{i}_res0" in p:
+            blk = f"{pre}.{level}_blocks.{i}"
+            for j in range(n_res):
+                _vae_resnet(sd, f"{blk}.resnets.{j}", p[f"{level}{i}_res{j}"])
+            if f"{level}{i}_conv" in p:
+                _vae_conv(sd, f"{blk}.{level}samplers.0.conv",
+                          p[f"{level}{i}_conv"])
+            i += 1
+    _vae_conv(sd, "quant_conv", params["quant_conv"])
+    _vae_conv(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
+def clip_state_dict_from_jax(params: dict) -> dict:
+    """``clip_jax`` params (numpy leaves) -> the ``CLIPTextModel`` names of
+    ``data.clip_text`` (no ``text_model.`` prefix).  The JAX tower keeps its
+    weights as torch does (``x @ w.T``), so they copy as they are."""
+    sd = {"embeddings.token_embedding.weight": _tensor(params["token_embedding"]),
+          "embeddings.position_embedding.weight":
+              _tensor(params["position_embedding"])}
+    _affine(sd, "final_layer_norm", params["final_ln"])
+    i = 0
+    while f"block{i}" in params:
+        b, pre = params[f"block{i}"], f"encoder.layers.{i}"
+        _affine(sd, f"{pre}.layer_norm1", b["ln1"])
+        _affine(sd, f"{pre}.layer_norm2", b["ln2"])
+        for jax_name, name in (("q", "q_proj"), ("k", "k_proj"),
+                               ("v", "v_proj"), ("out", "out_proj")):
+            sd[f"{pre}.self_attn.{name}.weight"] = _tensor(
+                b["attn"][f"{jax_name}_w"])
+            sd[f"{pre}.self_attn.{name}.bias"] = _tensor(
+                b["attn"][f"{jax_name}_b"])
+        for fc in ("fc1", "fc2"):
+            sd[f"{pre}.mlp.{fc}.weight"] = _tensor(b[f"{fc}_w"])
+            sd[f"{pre}.mlp.{fc}.bias"] = _tensor(b[f"{fc}_b"])
+        i += 1
     return sd
