@@ -127,6 +127,28 @@ Phases, each of which fails loudly (non-zero exit, no result line):
                  of each), one video training step, one guided video
                  forward, one text training step and one ssm2 training
                  step, by kind (torch.profiler).
+28. metric nets -- the FID Inception, DINOv2 ViT-L/14, I3D and LPIPS at
+                 full width with seeded random weights, written in the real
+                 files' layouts where the weight probing reads them
+                 (``ZIGMA_INCEPTION_WEIGHTS``, ``ZIGMA_DINOV2_WEIGHTS``, a
+                 traced I3D archive as ``ZIGMA_I3D_TORCHSCRIPT``): each on
+                 the card against the same net on the CPU, per output
+                 (``TOL_NETS``), and timed at the eval's batch beside its
+                 FLOPs and the fp32 bound;
+29. image eval -- ``cli.train`` on the flagship from the churches shards,
+                 8 steps with one eval at step 8: 64 samples in batches of
+                 16 by 50-step Euler, decoded by the SD-VAE, the full image
+                 menu (fid, is, kid, prdc, sfid, fdd) through the nets on
+                 the card, nothing dropped or degraded; K1 exactly 48 a step
+                 plus 4 x 49 x 24, K2 exactly 24 a step; ``best_fid`` finite
+                 in the checkpoint; the eval's seconds by part;
+30. video eval -- ``cli.train`` on the video ZigMa from the ucf101 shards,
+                 8 steps and one eval of 16 videos (4 batches of 4): fid
+                 per frame and the styleganv fvd, undegraded; K1 exactly;
+31. sample metrics -- ``cli.sample metrics=[fid,kid,is,sfid,prdc,fdd]
+                 decode_latents=true`` against the churches validation
+                 split, 2 batches of 16: ``metrics.json`` written, every
+                 score finite, K1 24 x 49 a batch.
 
 Every count is set to 0 just before its path runs and read just after; the
 plain versions must run 0 times on every path.
@@ -252,15 +274,31 @@ S1024 = {"p2": ["model=s1024_zigzag8_b2"],
          "p1": ["model=s1024_zigzag8_b2", "model.params.patch_size=1"]}
 # the data path: random full-width SD-VAE and CLIP weights from these
 # seeds; 64 seeded images of mixed sizes in 4 shards of each layout
-# (churches, coco with 5 captions a sample as COCO has, ucf101 with 20
-# stored frames for the 16-frame window); the configs' shard specs are cut
-# to these 4 shards
+# (churches, coco with 5 captions a sample as COCO has, ucf101: 16 clips
+# with 20 stored frames for the 16-frame window, as many as the video eval
+# scores); the configs' shard specs are cut to these 4 shards
 VAE_SEED = CLIP_SEED = 0
 N_IMAGES, SHARD_SIZE, N_SHARDS = 64, 16, 4
 DATA_SHARDS = "train-{000000..000003}.tar"
 IMAGE_SIZES = [(256, 256), (300, 400), (512, 384), (200, 264), (384, 288)]
 N_CAPTIONS = 5
-N_VIDEOS, UCF_SRC_FRAMES, UCF_FRAMES = 8, 24, 20
+N_VIDEOS, UCF_SRC_FRAMES, UCF_FRAMES = 16, 24, 20
+# the metrics: the four feature nets at full width with random weights from
+# this seed; the evals cut from the configs' 5000 samples by dopri5 at
+# batch 4 to EVAL_N images in batches of EVAL_BS by 50-step Euler, and
+# VIDEO_EVAL_N videos in batches of VIDEO_BATCH; the sample CLI scores
+# SAMPLE_METRIC_BATCHES batches of BATCH
+NET_SEED = 0
+EVAL_N, EVAL_BS, VIDEO_EVAL_N, SAMPLE_METRIC_BATCHES = 64, 16, 16, 2
+IMAGE_MENU = ("fid", "is", "kid", "prdc", "sfid", "fdd")
+# each metric net on the card against the same net on the CPU, per output,
+# as max |card - CPU| / max |CPU|: fp32 both sides with TF32 off, so only
+# summation order differs.  The first run on the H100 (H100 80GB HBM3,
+# 700 W) read 9.3e-8 (LPIPS) to 5.3e-6 (Inception's sFID tap; DINOv2
+# 1.6e-6, I3D 1.7e-6); TF32 (10-bit mantissa) would err near 2^-11 =
+# 4.9e-4.  The limit sits about 6x above the worst reading and 16x below
+# TF32
+TOL_NETS = 3e-5
 # the SD-VAE and the CLIP tower on the card against the same on the CPU,
 # each output as max |card - CPU| / max |CPU|: fp32 both sides (TF32 off),
 # so only summation order differs.  The first run on the H100 (H100 80GB
@@ -1343,13 +1381,16 @@ def s1024_kernel_phase(gen):
     return times
 
 
-def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images"):
+def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
+                    k1_eval=0):
     """``cli.train`` with ``args`` at ``batch``, TRAIN_STEPS steps, the
     counts set to 0 just before and read just after: every loss finite,
-    exactly ``k1_step`` / ``k2_step`` K1 / K2 launches a step and the plain
-    versions never; the checkpoint's EMA loads with strict=True into the
-    sampler's model.  Returns (state, checkpoint, numbers); ``unit`` names
-    a sample (images, videos) in the printed rate."""
+    exactly ``k1_step`` / ``k2_step`` K1 / K2 launches a step (and
+    ``k1_eval`` more for the run's evals) and the plain versions never; the
+    checkpoint's EMA loads with strict=True into the sampler's model.
+    Returns (state, checkpoint, numbers, with the run's ``evals`` and
+    ``suite``); ``unit`` names a sample (images, videos) in the printed
+    rate."""
     import torch
     from zigma_tpu_torch.cli import sample as sample_cli
     from zigma_tpu_torch.cli import train as train_cli
@@ -1372,7 +1413,7 @@ def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images"):
     del fresh
     model = res["state"].model
     losses = [r["loss"] for r in res["records"]]
-    want = (k1_step * TRAIN_STEPS, k2_step * TRAIN_STEPS, 0, 0)
+    want = (k1_step * TRAIN_STEPS + k1_eval, k2_step * TRAIN_STEPS, 0, 0)
     print(f"{what} train CLI: {len(losses)} steps in {wall:.2f} s (model "
           f"build included); {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
           f"params, dtype {model.dtype}, remat {model.use_checkpoint}; losses "
@@ -1393,7 +1434,8 @@ def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images"):
           f"earlier phases before the run", flush=True)
     return res["state"], res["checkpoint"], dict(
         steps_per_s=steps_s, samples_per_s=steps_s * batch, peak_gb=peak_gb,
-        held_gb=held_gb, k1=counts[0], k2=counts[1])
+        held_gb=held_gb, k1=counts[0], k2=counts[1], evals=res["evals"],
+        suite=res["metric_suite"])
 
 
 def perturbed_ckpt(gen, ckpt, path):
@@ -1626,27 +1668,33 @@ def random_clip_tower(seed):
 
 
 def count_flops(model, fn):
-    """Multiply-add FLOPs of the Conv2d / Linear layers and the attention
-    products that ``fn()`` runs through ``model`` (forward hooks)."""
+    """Multiply-add FLOPs of the Conv2d / Conv3d / Linear layers and the
+    attention products that ``fn()`` runs through ``model`` (forward
+    hooks)."""
     import torch
     from zigma_tpu_torch.data.clip_text import CLIPAttention
     from zigma_tpu_torch.data.sd_vae import Attention
+    from zigma_tpu_torch.metrics.dinov2 import Attention as ViTAttention
     total = [0]
 
     def hook(m, inputs, out):
-        if isinstance(m, torch.nn.Conv2d):
-            k = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
+            k = m.in_channels // m.groups * math.prod(m.kernel_size)
             total[0] += 2 * out.numel() * k
         elif isinstance(m, torch.nn.Linear):
             total[0] += 2 * out.numel() * m.in_features
         elif isinstance(m, Attention):  # QK^T and PV over every position
             B, C, H, W = out.shape
             total[0] += 2 * 2 * B * (H * W) ** 2 * C
+        elif isinstance(m, ViTAttention):
+            B, L, D = out.shape
+            total[0] += 2 * 2 * B * L * L * D
         elif isinstance(m, CLIPAttention):  # causal: half the products
             B, L, D = out.shape
             total[0] += 2 * B * L * L * D
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear, Attention,
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
+                                 torch.nn.Linear, Attention, ViTAttention,
                                  CLIPAttention))]
     try:
         fn()
@@ -2024,6 +2072,300 @@ def decoded_sample_phase(gen, ckpt, vckpt, dirs, tmp):
     return out
 
 
+# -------------------------------------------------------------- the metrics --
+
+def random_net_state_dict(net, seed):
+    """Random full-width weights for a metric net, made on the CPU from
+    ``seed`` as the JAX nets' ``random_params`` make them: convolutions
+    He-normal, Linear layers 1/sqrt(fan in), BatchNorm scale 1 + 0.1 N and
+    bias 0.1 N over unit statistics, LayerNorm 1 / 0, LayerScale 0.5, token
+    and position embeddings 0.02 N, lpips heads |N| / channels, other
+    biases 0."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+
+    def normal(shape):
+        return torch.randn(shape, generator=g)
+
+    sd = {}
+    for name, t in net.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            v = torch.full(t.shape, float(leaf == "running_var"))
+        elif ".bn." in name:
+            v = (1.0 + 0.1 * normal(t.shape) if leaf == "weight"
+                 else 0.1 * normal(t.shape))
+        elif re.search(r"(^|\.)norm\d?\.", name):
+            v = torch.full(t.shape, float(leaf == "weight"))
+        elif leaf == "gamma":
+            v = torch.full(t.shape, 0.5)
+        elif leaf in ("cls_token", "pos_embed"):
+            v = 0.02 * normal(t.shape)
+        elif name.startswith("lin"):
+            v = normal(t.shape).abs() / t.shape[1]
+        elif leaf == "bias":
+            v = torch.zeros(t.shape)
+        else:
+            fan_in = math.prod(t.shape[1:])
+            v = normal(t.shape) * math.sqrt((2.0 if t.ndim > 2 else 1.0)
+                                            / fan_in)
+        sd[name] = v
+    return sd
+
+
+def metric_nets_phase(tmp):
+    """The four metric nets at full width with random weights: written as
+    the real files are (a torch-fidelity Inception state dict, the dinov2
+    hub state dict with its ``mask_token``, the StyleGAN-V I3D as a traced
+    TorchScript archive) behind ``ZIGMA_INCEPTION_WEIGHTS``,
+    ``ZIGMA_DINOV2_WEIGHTS`` and ``ZIGMA_I3D_TORCHSCRIPT`` for the eval
+    phases; each net on the card (loaded as the probing loads it) against
+    the same weights on the CPU on 2 inputs, every output, and timed at the
+    eval's batch (Inception and DINOv2 on EVAL_BS 256^2 images, I3D on
+    VIDEO_BATCH 16-frame 256^2 clips through the styleganv feed, LPIPS on
+    EVAL_BS 256^2 pairs) beside its FLOPs and the fp32 bound."""
+    import torch
+    from zigma_tpu_torch.convert.torchscript_i3d import convert_torchscript_i3d
+    from zigma_tpu_torch.metrics import dinov2, i3d, inception
+    from zigma_tpu_torch.metrics import lpips as lp
+
+    wdir = os.path.join(tmp, "metric_weights")
+    os.makedirs(wdir)
+    g = torch.Generator().manual_seed(21)
+    imgs = torch.randint(0, 256, (2, 3, 256, 256), generator=g,
+                         dtype=torch.uint8)
+    clips = torch.randint(0, 256, (2, 16, 256, 256, 3), generator=g,
+                          dtype=torch.uint8)
+    pair = (torch.rand(2, 3, 256, 256, generator=g) * 2 - 1,
+            torch.rand(2, 3, 256, 256, generator=g) * 2 - 1)
+    errs, out = {}, {}
+
+    def check(what, cpu_fn, cuda_fn):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = cpu_fn()
+            cpu_s = time.perf_counter() - t0
+            got = cuda_fn()
+        ref = ref if isinstance(ref, dict) else {"out": ref}
+        got = got if isinstance(got, dict) else {"out": got}
+        for k in ref:
+            e = rel_err(got[k].float().cpu(), ref[k])[1]
+            errs[f"{what} {k}" if k != "out" else what] = e
+        print(f"{what}: card vs CPU ({cpu_s:.1f} s on the CPU), max |card - "
+              f"CPU| / max |CPU|: " + ", ".join(
+                  f"{k} {errs[f'{what} {k}' if k != 'out' else what]:.3e}"
+                  for k in ref) + f"; limit {TOL_NETS}", flush=True)
+
+    # Inception: the torch-fidelity file, through the probe's loader
+    sd = random_net_state_dict(inception.InceptionV3(), NET_SEED)
+    path = os.path.join(wdir, "pt_inception-2015-12-05-6726825d.pth")
+    torch.save(sd, path)
+    os.environ["ZIGMA_INCEPTION_WEIGHTS"] = path
+    inc_cpu = inception.from_state_dict(torch.load(path), "cpu")
+    inc = inception.from_state_dict(torch.load(path), "cuda")
+    check("Inception (5 taps)",
+          lambda: inc_cpu(imgs, features=inception.FEATURE_NAMES),
+          lambda: inc(imgs.cuda(), features=inception.FEATURE_NAMES))
+
+    # DINOv2 ViT-L/14: the hub file (its unused mask_token included)
+    sd = random_net_state_dict(dinov2.DinoV2("vitl14"), NET_SEED)
+    path = os.path.join(wdir, "dinov2_vitl14_pretrain.pth")
+    torch.save({**sd, "mask_token": torch.zeros(1, 1024)}, path)
+    os.environ["ZIGMA_DINOV2_WEIGHTS"] = path
+    dino_cpu = dinov2.from_state_dict(torch.load(path), "vitl14", "cpu")
+    dino = dinov2.from_state_dict(torch.load(path), "vitl14", "cuda")
+    check("DINOv2 ViT-L/14",
+          lambda: dino_cpu(dinov2.fdd_preprocess(imgs)),
+          lambda: dino(dinov2.fdd_preprocess(imgs.cuda())))
+    del dino_cpu
+
+    # I3D: a traced archive, read back by the converter as the probe does
+    net = i3d.InceptionI3d()
+    net.load_state_dict(random_net_state_dict(net, NET_SEED), strict=True)
+    net.eval().requires_grad_(False)
+    path = os.path.join(wdir, "i3d_torchscript.pt")
+    with torch.no_grad():
+        torch.jit.trace(net, torch.zeros(1, 3, 8, 32, 32)).save(path)
+    os.environ["ZIGMA_I3D_TORCHSCRIPT"] = path
+    sd = convert_torchscript_i3d(path)
+    i3d_cpu = i3d.from_state_dict(sd, "cpu")
+    i3d_net = i3d.from_state_dict(sd, "cuda")
+    check("I3D (styleganv feed)",
+          lambda: i3d_cpu(i3d.styleganv_gating_preprocess(clips)),
+          lambda: i3d_net(i3d.styleganv_gating_preprocess(clips.cuda())))
+    del i3d_cpu
+
+    # LPIPS: torchvision AlexNet features and the lpips heads
+    sd = random_net_state_dict(lp.LPIPS(), NET_SEED)
+    alex = {k[len("alex."):]: v for k, v in sd.items()
+            if k.startswith("alex.")}
+    heads = {k: v for k, v in sd.items() if k.startswith("lin")}
+    lp_cpu = lp.from_state_dicts(alex, heads, "cpu")
+    lp_net = lp.from_state_dicts(alex, heads, "cuda")
+    check("LPIPS (AlexNet)", lambda: lp_cpu(*pair),
+          lambda: lp_net(*(p.cuda() for p in pair)))
+    if not all(math.isfinite(e) and e <= TOL_NETS for e in errs.values()):
+        fail(f"metric nets card vs CPU: {errs}, limit {TOL_NETS}")
+
+    gc = torch.Generator(device="cuda").manual_seed(22)
+    x16 = torch.randint(0, 256, (EVAL_BS, 3, 256, 256), generator=gc,
+                        device="cuda", dtype=torch.uint8)
+    v4 = torch.randint(0, 256, (VIDEO_BATCH, 16, 256, 256, 3), generator=gc,
+                       device="cuda", dtype=torch.uint8)
+    p16 = [torch.rand(EVAL_BS, 3, 256, 256, generator=gc, device="cuda")
+           * 2 - 1 for _ in range(2)]
+    times = {}
+    with torch.inference_mode():
+        for what, model, fn, work in (
+                ("Inception 2048 tap", inc,
+                 lambda: inc(x16, features=("2048",)),
+                 f"{EVAL_BS} x 256^2 -> 299^2"),
+                ("Inception sFID tap (to Mixed_6e)", inc,
+                 lambda: inc(x16, features=("768",)),
+                 f"{EVAL_BS} x 256^2 -> 299^2"),
+                ("DINOv2 ViT-L/14", dino,
+                 lambda: dino(dinov2.fdd_preprocess(x16)),
+                 f"{EVAL_BS} x 256^2 -> 224^2, 257 tokens"),
+                ("I3D", i3d_net,
+                 lambda: i3d_net(i3d.styleganv_gating_preprocess(v4)),
+                 f"{VIDEO_BATCH} x 16 x 256^2 -> 224^2"),
+                ("LPIPS (AlexNet)", lp_net, lambda: lp_net(*p16),
+                 f"{EVAL_BS} pairs of 256^2")):
+            flops = count_flops(model, fn)
+            ms = cuda_ms(fn, reps=3, groups=3)
+            bound = flops / FP32_FLOPS_PER_S * 1e3
+            times[what] = dict(ms=ms, flops=flops, bound_ms=bound, work=work)
+            print(f"{what}, {work}: {ms:.3f} ms, {flops / 1e9:.1f} GFLOP "
+                  f"({flops / 1e9 / (VIDEO_BATCH if what == 'I3D' else EVAL_BS):.2f}"
+                  f" a sample), {flops / ms / 1e9:.1f} TFLOP/s, fp32 bound "
+                  f"{bound:.3f} ms ({100 * bound / ms:.1f}% of it)",
+                  flush=True)
+    del inc, dino, i3d_net, lp_net, lp_cpu, inc_cpu
+    torch.cuda.empty_cache()
+    return dict(errs=errs, times=times)
+
+
+def check_eval(what, tr, want_choices, flavor=None):
+    """One eval in the run, not swallowed by the catch; every score finite;
+    nothing dropped; every feature net a ``NetExtractor`` on the card (no
+    patch statistics); prints its seconds by part."""
+    from zigma_tpu_torch.cli.train import eval_nets
+    from zigma_tpu_torch.metrics import NetExtractor
+    evals, suite = tr["evals"], tr["suite"]
+    if len(evals) != 1 or "error" in evals[0]:
+        fail(f"{what}: evals {evals}")
+    scores, secs = evals[0]["scores"], evals[0]["seconds"]
+    streams = [*suite.image.extractors.values()]
+    if suite.image.logits_extractor is not None:
+        streams.append(suite.image.logits_extractor)
+    if suite.video is not None:
+        streams += suite.video.extractors.values()
+    nets = eval_nets(suite)
+    print(f"{what}: choices {suite.choices}, dropped {list(suite.dropped)}, "
+          f"nets {[f'{n.name} on {n.device}' for n in nets]}"
+          + (f", fvd flavour {suite.video.flavor}" if suite.video else "")
+          + f"; scores {json.dumps(scores)}", flush=True)
+    total = (secs["sample"] + secs["decode"] + secs["host"] + secs["compute"]
+             + sum(secs["nets"].values()))
+    print(f"{what} seconds: {total:.2f} in all; sampling {secs['sample']:.2f}, "
+          f"decode {secs['decode']:.2f}, host (copies, uint8, moments) "
+          f"{secs['host']:.2f}, statistics on the host {secs['compute']:.2f}; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs["nets"].items()),
+          flush=True)
+    if list(suite.choices) != list(want_choices) or suite.dropped:
+        fail(f"{what}: choices {suite.choices}, dropped {suite.dropped}")
+    if not all(isinstance(f, NetExtractor) and f.device.type == "cuda"
+               for f in streams):
+        fail(f"{what}: a stream is not a net on the card: {streams}")
+    if flavor and suite.video.flavor != flavor:
+        fail(f"{what}: fvd flavour {suite.video.flavor}, expected {flavor}")
+    if not scores or not all(math.isfinite(v) for v in scores.values()):
+        fail(f"{what}: scores {scores}")
+    return dict(scores=scores, seconds=secs, total_s=total)
+
+
+def eval_args(data, root, n, bs):
+    """Shard args with one eval at the last step (n samples in batches of
+    bs, the validation batches as large) through the SD-VAE, 50-step
+    Euler."""
+    return [*(a for a in shard_args(data, root)
+              if not a.startswith("data.sample_fid_n=")),
+            f"data.sample_fid_n={n}",
+            f"data.sample_fid_bs={bs}", f"data.val_batch_size={bs}",
+            f"data.sample_fid_every={TRAIN_STEPS}", "vae_kind=sd-vae",
+            "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}"]
+
+
+def image_eval_phase(dirs, tmp):
+    """The flagship trained from the churches shards with one eval: the
+    full image menu through the nets on the card; K1 48 a step plus
+    EVAL_N / EVAL_BS x 49 x 24 for the eval, K2 24 a step; best_fid finite
+    in the checkpoint."""
+    import torch
+    args = ["model=zigzag8_b1_pe2",
+            *eval_args("churches256", dirs["churches"], EVAL_N, EVAL_BS)]
+    k1_eval = EVAL_N // EVAL_BS * (STEPS - 1) * DEPTH
+    state, ckpt, tr = train_cli_phase(  # a run dir of its own: no resume
+        "churches + eval", args, BATCH, 2 * DEPTH, DEPTH,
+        os.path.join(tmp, "eval"), k1_eval=k1_eval)
+    out = check_eval("image eval", tr, IMAGE_MENU)
+    best = torch.load(ckpt, weights_only=False)["best_fid"]
+    print(f"checkpoint best_fid {best} (the eval's fid {out['scores']['fid']})",
+          flush=True)
+    if not math.isfinite(best) or best != out["scores"]["fid"]:
+        fail(f"best_fid {best} in the checkpoint")
+    del state
+    return dict(out, k1=tr["k1"], k2=tr["k2"], k1_eval=k1_eval)
+
+
+def video_eval_phase(dirs, tmp):
+    """The video ZigMa from the ucf101 shards with one eval of
+    VIDEO_EVAL_N videos: fid per frame and the styleganv fvd through the
+    nets on the card; K1 exactly."""
+    args = ["model=3d_zigzag8sst_b2", "model.params.class_dropout_prob=0.1",
+            *eval_args("ucf101", dirs["ucf101"], VIDEO_EVAL_N, VIDEO_BATCH)]
+    k1_eval = VIDEO_EVAL_N // VIDEO_BATCH * (STEPS - 1) * DEPTH
+    state, ckpt, tr = train_cli_phase(
+        "ucf101 + eval", args, VIDEO_BATCH, 2 * DEPTH, DEPTH,
+        os.path.join(tmp, "eval"), "videos", k1_eval=k1_eval)
+    del state
+    out = check_eval("video eval", tr, ("fid", "fvd"), flavor="styleganv")
+    return dict(out, k1=tr["k1"], k2=tr["k2"], k1_eval=k1_eval)
+
+
+def sample_metrics_phase(ckpt, dirs, tmp):
+    """``cli.sample metrics=[fid,kid,is,sfid,prdc,fdd] decode_latents=true``
+    against the churches validation split: metrics.json written, every
+    score finite, nothing dropped, K1 24 x 49 a batch."""
+    res, calls, k1, k2 = run_sample_cli("sample CLI with metrics", [
+        f"ckpt={ckpt}", "model=zigzag8_b1_pe2",
+        *shard_args("churches256", dirs["churches"]),
+        f"data.val_batch_size={BATCH}",
+        "metrics=[fid,kid,is,sfid,prdc,fdd]", "decode_latents=true",
+        "vae_kind=sd-vae", "sample_mode=ODE", "ode.sampling_method=euler",
+        f"ode.num_sampling_steps={STEPS}", f"offline_sample_local_bs={BATCH}",
+        f"num_fid_samples={SAMPLE_METRIC_BATCHES * BATCH}",
+        f"sample_dir={tmp}/metrics"])
+    path = os.path.join(res["out_dir"], "metrics.json")
+    with open(path) as f:
+        scores = json.load(f)
+    suite = res["metric_suite"]
+    print(f"metrics.json: {json.dumps(scores)}; choices {res['metrics']}, "
+          f"dropped {list(suite.dropped)}; {res['real_batches']} validation "
+          f"batches; K1 {k1}, K2 {k2}", flush=True)
+    want_k1 = SAMPLE_METRIC_BATCHES * DEPTH * (STEPS - 1)
+    if (k1, k2) != (want_k1, 0):
+        fail(f"sample metrics: K1 / K2 {(k1, k2)}, expected {(want_k1, 0)}")
+    if sorted(res["metrics"]) != sorted(IMAGE_MENU) or suite.dropped:
+        fail(f"sample metrics: {res['metrics']}, dropped {suite.dropped}")
+    if scores != res["scores"] or not all(math.isfinite(v)
+                                          for v in scores.values()):
+        fail(f"sample metrics: {scores}")
+    return dict(k1=k1, scores=scores)
+
+
 def _kind(key):
     k = key.lower()
     return ("K1 selective scan fwd" if "selective_scan_fwd" in k else
@@ -2266,6 +2608,17 @@ def main():
 
         profile_phase(f"one guided video forward (batch {VIDEO_BATCH}, "
                       f"{2 * VIDEO_BATCH} under CFG)", guided)
+        del vmodel
+        torch.cuda.empty_cache()
+        phase("metric nets (Inception, DINOv2 ViT-L/14, I3D, LPIPS; full "
+              "width, random weights)")
+        mn = metric_nets_phase(tmp)
+        phase("image eval through cli.train (churches shards, full menu)")
+        ev = image_eval_phase(dirs, tmp)
+        phase("video eval through cli.train (ucf101 shards, fid and fvd)")
+        vev = video_eval_phase(dirs, tmp)
+        phase("sample CLI metrics (churches validation split)")
+        sm = sample_metrics_phase(e2e["ckpt"], dirs, tmp)
 
     kernels = [
         dict(name="selective_scan_fwd", route="cuda",
@@ -2287,7 +2640,10 @@ def main():
                                "train_ucf101_shards": sh["ucf101"]["k1"],
                                "sample_decoded": dec["k1"],
                                "video_sample_decoded": dec["video_k1"],
-                               "likelihood_validation": dec["lik_k1"]},
+                               "likelihood_validation": dec["lik_k1"],
+                               "train_churches_eval": ev["k1"],
+                               "train_ucf101_eval": vev["k1"],
+                               "sample_metrics": sm["k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
@@ -2303,7 +2659,9 @@ def main():
                                "train_churches_shards": sh["churches"]["k2"],
                                "train_coco_shards": sh["coco"]["k2"],
                                "train_ucf101_shards": sh["ucf101"]["k2"],
-                               "likelihood_validation": dec["lik_k2"]},
+                               "likelihood_validation": dec["lik_k2"],
+                               "train_churches_eval": ev["k2"],
+                               "train_ucf101_eval": vev["k2"]},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
@@ -2338,7 +2696,12 @@ def main():
                       for k, v in sh.items())
           + f" (synthetic {tr['steps_per_s']:.4f} steps/s); decoded sampling "
           f"{dec['images_per_s']:.4f} images/s (undecoded "
-          f"{e2e['images_per_s']:.4f})")
+          f"{e2e['images_per_s']:.4f}); metric nets "
+          + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in mn["times"].items())
+          + f"; image eval of {EVAL_N} {ev['total_s']:.2f} s (sampling "
+          f"{ev['seconds']['sample']:.2f}), video eval of {VIDEO_EVAL_N} "
+          f"{vev['total_s']:.2f} s; fid {ev['scores']['fid']:.4f}, fvd "
+          f"{vev['scores']['fvd']:.4f} (random nets, random weights)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

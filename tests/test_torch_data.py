@@ -242,16 +242,17 @@ TINY = ["model.params.embed_dim=32", "model.params.depth=2",
 
 
 def test_train_and_likelihood_clis_on_shards(tmp_path, shards, capsys):
-    """``cli.train`` takes 2 CPU steps from the image shards (the FID
-    refusal names the override), and the likelihood scores the validation
-    split's latents, not noise."""
+    """``cli.train`` takes 2 CPU steps from the image shards (the config's
+    own sample_fid_n, 5000, gets past the start-up checks; the eval is
+    ``tests/test_torch_eval.py``'s), and the likelihood scores the
+    validation split's latents, not noise."""
     shard_args = ["data=churches256", f"data.tar_base={shards['img']}",
                   f"data.train.shards={SPEC['shards']}",
                   f"data.validation.shards={SPEC['shards']}",
                   "data.multinode=false"]
-    with pytest.raises(NotImplementedError, match="data.sample_fid_n=0"):
-        train_cli.main([*TINY, *shard_args, "device=cpu",
-                        f"results_dir={tmp_path}"])
+    cfg = sample_cli.load_config(CONFIG_DIR, "default", [*TINY, *shard_args])
+    assert cfg.data.sample_fid_n == 5000
+    train_cli._check_supported(cfg)
     res = train_cli.main([*TINY, *shard_args, "data.sample_fid_n=0",
                           "data.batch_size=4", "data.train_steps=2",
                           "log_every=1", "device=cpu",

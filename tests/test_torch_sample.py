@@ -111,9 +111,11 @@ def test_sample_cli_refuses_cpu_unless_asked(tmp_path, monkeypatch):
         pytest.skip("this machine has CUDA: the default device is usable")
     with pytest.raises(RuntimeError, match="device=cpu"):
         sample_cli.main(_overrides(tmp_path, "unused.pt"))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # metrics are ported: fvd on an image run raises before the checkpoint
+    # is read
+    with pytest.raises(ValueError, match="video run"):
         sample_cli.main(_overrides(tmp_path, "unused.pt")
-                        + ["device=cpu", "sample_mode=SDE", "metrics=[fid]"])
+                        + ["device=cpu", "sample_mode=SDE", "metrics=[fvd]"])
     # decoding is ported: the SD-VAE without local weights raises first
     monkeypatch.delenv("ZIGMA_VAE_WEIGHTS", raising=False)
     monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))

@@ -341,10 +341,14 @@ def test_train_cli_refuses_what_this_slice_lacks(tmp_path):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device=cpu"):
             train_cli.main([*TINY, f"results_dir={tmp_path}"])
-    for extra in (["data=churches256"], ["data.sample_fid_n=8"],
-                  ["parallel.fsdp=true"], ["parallel.tp=2"]):
+    for extra in (["parallel.fsdp=true"], ["parallel.tp=2"]):
         with pytest.raises(NotImplementedError, match="later slice"):
             _train(tmp_path, *extra)
+    # the in-training eval is ported: the shard configs' own sample_fid_n
+    # gets past the refusals
+    for extra in (["data=churches256"], ["data.sample_fid_n=8"]):
+        train_cli._check_supported(sample_cli.load_config(
+            sample_cli.DEFAULT_CONFIG_DIR, "default", [*TINY, *extra]))
     with pytest.raises(NotImplementedError, match="not ported"):
         _train(tmp_path, "chain_steps=4")
     # in-training sampling with the configured ODE method, the default

@@ -23,9 +23,17 @@ features.  Without one the likelihood scores the Gaussian noise it starts
 from (the reference's behaviour, with the JAX CLI's warning), and a text
 model samples with zero (null) caption features.
 
+``metrics=[fid,kid,...]`` scores the samples against the validation split,
+as the JAX CLI does (sample_acc.py:359-385, 454-462): the suite is built
+after the codec and keyed on whether it gives pixels (the canonical nets
+from local weights on the sampling device, else each choice degrades as
+``metrics/menu.py`` says; ``fvd`` on an image run or an unknown name
+raises before anything is loaded); each sampled batch is paired with the
+next validation batch (decoded the same way) until the split runs out, and
+the scores go to ``metrics.json`` beside the samples.
+
 Runs on CUDA unless ``device=cpu`` is given; asking for CUDA on a machine
-without it raises.  Metrics are a later slice of the port and raise
-``NotImplementedError``.
+without it raises.
 """
 
 from __future__ import annotations
@@ -38,8 +46,10 @@ import numpy as np
 import torch
 
 from zigma_tpu_torch.config import Config, load_config
-from zigma_tpu_torch.data.vae import decode_maybe_video, get_codec
+from zigma_tpu_torch.data.vae import (IdentityCodec, decode_maybe_video,
+                                      get_codec)
 from zigma_tpu_torch.device import resolve_device
+from zigma_tpu_torch.metrics.facade import to_uint8_images
 from zigma_tpu_torch.models import ZigMa
 from zigma_tpu_torch.train.state import LATENT_SCALE
 from zigma_tpu_torch.transport import Sampler, create_transport
@@ -52,13 +62,6 @@ __all__ = ["DEFAULT_CONFIG_DIR", "LATENT_SCALE", "build_model",
 DEFAULT_CONFIG_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "configs")
-
-
-def to_uint8_images(arr: np.ndarray) -> np.ndarray:
-    """[-1, 1] float images -> uint8 [0, 255] (own copy of
-    ``zigma_tpu.metrics.facade.to_uint8_images``)."""
-    return np.clip(127.5 * np.asarray(arr, np.float32) + 128.0,
-                   0, 255).astype(np.uint8)
 
 
 def build_model(cfg: Config, device=None,
@@ -125,28 +128,30 @@ def build_sample_fn(cfg: Config, sampler: Sampler):
     raise ValueError(f"unknown sample_mode {mode!r}")
 
 
-def _check_supported(cfg: Config):
-    if cfg.get("metrics"):
-        raise NotImplementedError(
-            "metrics (M7): lands in a later slice of the port")
-
-
 def main(argv=None) -> dict:
     """Run the sampler.  Returns ``{"out_dir", "kind", "batch_seconds",
     "decode_seconds", "n_nonfinite", "model_calls", "dopri5", "logp",
-    "real_batches"}``: each batch's host-clock seconds (noise to samples,
-    decoded when asked, on the host) and the decode's share of them, the
-    count of non-finite output values, each batch's model calls (a guided
-    call runs one doubled batch), dopri5's accepted / rejected steps a
-    batch, the likelihood's logp a batch (numpy) and the number of
-    validation batches used."""
+    "real_batches", "metrics", "scores", "metric_suite"}``: each batch's
+    host-clock seconds (noise to samples, decoded when asked, on the host)
+    and the decode's share of them, the count of non-finite output values,
+    each batch's model calls (a guided call runs one doubled batch),
+    dopri5's accepted / rejected steps a batch, the likelihood's logp a
+    batch (numpy), the number of validation batches used, the metric
+    suite's surviving choices, its scores (also in ``metrics.json``; {}
+    without paired batches) and the suite itself (None without
+    ``metrics``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     config_dir = DEFAULT_CONFIG_DIR
     if argv and argv[0].startswith("--config-dir="):
         config_dir = argv.pop(0).split("=", 1)[1]
     cfg = load_config(config_dir, "default", argv)
+    metric_choices = list(cfg.get("metrics") or [])
+    video = cfg.data.get("video_frames", 0) > 0
+    if metric_choices:  # unknown names and fvd on images fail first
+        from zigma_tpu_torch.metrics import validate_choices
+
+        validate_choices(metric_choices, video=video)
     device = resolve_device(cfg.get("device"))
-    _check_supported(cfg)
     path = cfg.get("ckpt")
     if not path:
         raise ValueError("sampling requires ckpt=<path>")
@@ -154,6 +159,24 @@ def main(argv=None) -> dict:
     codec = None  # first: a missing VAE fails before any sampling
     if cfg.get("decode_latents"):
         codec = get_codec(cfg.get("vae_kind", "auto"), device=device)
+    # pixels only from a real codec: 'auto' may fall back to the identity,
+    # whose float latents take the patch-statistics route
+    in_pixels = codec is not None and not isinstance(codec, IdentityCodec)
+    metric = None
+    if metric_choices:
+        from zigma_tpu_torch.metrics import build_metric_suite
+
+        suite = build_metric_suite(choices=metric_choices, video=video,
+                                   in_pixels=in_pixels, logger=logger,
+                                   device=device)
+        if suite.empty:
+            logger.warning("metrics unavailable: every requested choice "
+                           "was dropped (%s)", list(suite.dropped))
+        else:
+            logger.info("metrics: %s%s", suite.choices,
+                        f" (dropped: {list(suite.dropped)})"
+                        if suite.dropped else "")
+            metric = suite
 
     model = build_model(cfg, device=device)
     n_classes = int(cfg.data.get("num_classes", -1))
@@ -208,7 +231,10 @@ def main(argv=None) -> dict:
         real_gen = wds_batches(cfg, split="validation")
     res = dict(out_dir=out_dir, kind=kind, batch_seconds=[],
                decode_seconds=[], n_nonfinite=0, model_calls=[], dopri5=[],
-               logp=[], real_batches=0)
+               logp=[], real_batches=0,
+               metrics=metric.choices if metric is not None else [],
+               scores={}, metric_suite=metric)
+    n_pairs = 0
 
     def next_real():
         """The next validation batch, or None once the finite split is
@@ -292,6 +318,18 @@ def main(argv=None) -> dict:
             logger.info("dopri5: %d accepted, %d rejected steps",
                         stats["accepted"], stats["rejected"])
         res["n_nonfinite"] += int((~np.isfinite(arr)).sum())
+        if metric is not None:
+            # paired updates only: once the split runs out the metric
+            # freezes at the pairs seen, while sampling goes on
+            batch = next_real()
+            if batch is not None:
+                real_arr = np.asarray(batch["x"])[:bs]
+                if codec is not None:
+                    real_arr = decode_maybe_video(codec, real_arr)
+                metric.update_fake(to_uint8_images(arr) if in_pixels else arr)
+                metric.update_real(to_uint8_images(real_arr) if in_pixels
+                                   else real_arr)
+                n_pairs += 1
         if arr.ndim == 5:
             np.save(os.path.join(out_dir, f"video_{it}_0.npy"), arr)
             for i in range(arr.shape[0]):
@@ -305,6 +343,13 @@ def main(argv=None) -> dict:
         it += 1
         logger.info("generated %d/%d (%.3f s, %d model calls)", made, num,
                     res["batch_seconds"][-1], calls[0])
+    if metric is not None and n_pairs > 0:
+        import json
+
+        res["scores"] = metric.compute()
+        logger.info("metrics: %s", res["scores"])
+        with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+            json.dump(res["scores"], f)
     logger.info("samples written to %s", out_dir)
     return res
 

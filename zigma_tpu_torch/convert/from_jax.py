@@ -27,6 +27,17 @@ The SD-VAE (``vae_state_dict_from_jax``, trees of
 diffusers / Hugging Face names the port's modules carry (``data/sd_vae.py``,
 ``data/clip_text.py``).
 
+The metric nets (``inception_state_dict_from_jax``,
+``dinov2_state_dict_from_jax``, ``i3d_state_dict_from_jax``,
+``lpips_state_dicts_from_jax``) take the trees that the JAX nets'
+``random_params`` and ``load_torch_state_dict`` build
+(``zigma_tpu/metrics/{inception,dinov2,i3d,lpips}_jax.py``) and give the
+torch-fidelity, dinov2 hub, pytorch-i3d and torchvision / lpips names of
+``metrics/{inception,dinov2,i3d,lpips}.py``: convolutions HWIO -> OIHW and
+DHWIO -> OIDHW, BatchNorm scale / bias / mean / var -> ``bn.weight``,
+``bn.bias``, ``bn.running_mean``, ``bn.running_var``; DINOv2's Linear
+weights are (out, in) on both sides.
+
 Mamba-2 mixers (a block whose mixer has ``ssd``; the reference has no
 Mamba-2, so the names are the public ``mamba_ssm`` Mamba2 module's):
 
@@ -45,7 +56,9 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "vae_state_dict_from_jax",
-           "clip_state_dict_from_jax"]
+           "clip_state_dict_from_jax", "inception_state_dict_from_jax",
+           "dinov2_state_dict_from_jax", "i3d_state_dict_from_jax",
+           "lpips_state_dicts_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -258,3 +271,78 @@ def clip_state_dict_from_jax(params: dict) -> dict:
             sd[f"{pre}.mlp.{fc}.bias"] = _tensor(b[f"{fc}_b"])
         i += 1
     return sd
+
+
+# -------------------------------------------------------------- metric nets --
+
+def _conv_bn(sd: dict, conv: str, bn: str, p: dict, perm):
+    sd[f"{conv}.weight"] = _tensor(np.transpose(np.asarray(p["w"]), perm))
+    sd[f"{bn}.weight"] = _tensor(p["bn_scale"])
+    sd[f"{bn}.bias"] = _tensor(p["bn_bias"])
+    sd[f"{bn}.running_mean"] = _tensor(p["bn_mean"])
+    sd[f"{bn}.running_var"] = _tensor(p["bn_var"])
+
+
+def inception_state_dict_from_jax(params: dict) -> dict:
+    """``inception_jax`` params -> torch-fidelity FID-Inception names."""
+    from zigma_tpu_torch.metrics.inception import CONV_SPECS
+
+    sd: dict = {}
+    for name in CONV_SPECS:
+        _conv_bn(sd, f"{name}.conv", f"{name}.bn", params[name], (3, 2, 0, 1))
+    sd["fc.weight"] = _tensor(params["fc"]["w"])
+    sd["fc.bias"] = _tensor(params["fc"]["b"])
+    return sd
+
+
+def dinov2_state_dict_from_jax(params: dict) -> dict:
+    """``dinov2_jax`` params -> the dinov2 hub names (no ``mask_token``)."""
+    sd = {"patch_embed.proj.weight": _tensor(np.transpose(
+              np.asarray(params["patch_embed"]["w"]), (3, 2, 0, 1))),
+          "patch_embed.proj.bias": _tensor(params["patch_embed"]["b"]),
+          "cls_token": _tensor(params["cls_token"]),
+          "pos_embed": _tensor(params["pos_embed"])}
+    _affine(sd, "norm", params["norm"])
+    i = 0
+    while f"block{i}" in params:
+        b, pre = params[f"block{i}"], f"blocks.{i}"
+        _affine(sd, f"{pre}.norm1", b["norm1"])
+        _affine(sd, f"{pre}.norm2", b["norm2"])
+        for jax_name, name in (("qkv", "qkv"), ("proj", "proj")):
+            sd[f"{pre}.attn.{name}.weight"] = _tensor(b["attn"][f"{jax_name}_w"])
+            sd[f"{pre}.attn.{name}.bias"] = _tensor(b["attn"][f"{jax_name}_b"])
+        for fc in ("fc1", "fc2"):
+            sd[f"{pre}.mlp.{fc}.weight"] = _tensor(b[f"mlp_{fc}_w"])
+            sd[f"{pre}.mlp.{fc}.bias"] = _tensor(b[f"mlp_{fc}_b"])
+        sd[f"{pre}.ls1.gamma"] = _tensor(b["ls1"])
+        sd[f"{pre}.ls2.gamma"] = _tensor(b["ls2"])
+        i += 1
+    return sd
+
+
+def i3d_state_dict_from_jax(params: dict) -> dict:
+    """``i3d_jax`` params -> pytorch-i3d names."""
+    from zigma_tpu_torch.metrics.i3d import UNIT_SPECS
+
+    sd: dict = {}
+    for name in UNIT_SPECS:
+        _conv_bn(sd, f"{name}.conv3d", f"{name}.bn", params[name],
+                 (4, 3, 0, 1, 2))
+    sd["logits.conv3d.weight"] = _tensor(np.transpose(
+        np.asarray(params["logits"]["w"]), (4, 3, 0, 1, 2)))
+    sd["logits.conv3d.bias"] = _tensor(params["logits"]["b"])
+    return sd
+
+
+def lpips_state_dicts_from_jax(params: dict):
+    """``lpips_jax`` params -> (torchvision AlexNet ``features.*`` state
+    dict, lpips ``alex.pth`` heads ``lin{i}.model.1.weight``)."""
+    alex, heads = {}, {}
+    for i, fi in enumerate((0, 3, 6, 8, 10)):
+        _vae_conv(alex, f"features.{fi}", params[f"conv{i}"])
+    i = 0
+    while f"lin{i}" in params:
+        w = np.asarray(params[f"lin{i}"]["w"])
+        heads[f"lin{i}.model.1.weight"] = _tensor(w.reshape(1, -1, 1, 1))
+        i += 1
+    return alex, heads
