@@ -148,7 +148,28 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 31. sample metrics -- ``cli.sample metrics=[fid,kid,is,sfid,prdc,fdd]
                  decode_latents=true`` against the churches validation
                  split, 2 batches of 16: ``metrics.json`` written, every
-                 score finite, K1 24 x 49 a batch.
+                 score finite, K1 24 x 49 a batch;
+32. serve     -- ``cli.serve``'s ``GenerationWorker`` on the flagship at
+                 full width (class-conditional, label drop 0.1, random
+                 weights, bf16 inference cast), 50-step Euler at
+                 serve_batch 8, SD-VAE decode, behind a
+                 ``ThreadingHTTPServer`` on 127.0.0.1: /healthz, a request
+                 for 3 images, two concurrent requests, a guided one (cfg
+                 4), equal arrays for equal seeds, 503 from a full queue of
+                 one; K1 exactly 24 x 49 a request, guided or not; warm-up
+                 seconds, ms a request and images/s;
+33. LM        -- ``models.lm`` at state-spaces/mamba-130m's shape (d_model
+                 768, 24 layers, vocab 50277 padded by 8, RMSNorm, residual
+                 in fp32, bf16, random weights): K1 at the prefill's (8,
+                 128, 1536, 16) against its plain version and the float64
+                 truth, timed beside the bound; prefill through K1 against
+                 the plain scan and prefill + 4 steps against 132 steps, in
+                 bf16 and fp32, and for a depth-4 Mamba-2 LM;
+                 ``loglikelihood_batch`` on the card against the CPU; greedy
+                 ``generate`` of 128 tokens after 128 at batch 8: K1 exactly
+                 24 a call and 0 a decode step, prefill ms, decode ms a
+                 token, tokens/s, launches and idle share of a decode step
+                 (torch.profiler); ``tools/benchmark_generation.py``.
 
 Every count is set to 0 just before its path runs and read just after; the
 plain versions must run 0 times on every path.
@@ -308,6 +329,29 @@ TOL_NETS = 3e-5
 # limits sit about 8x above the readings and 16x below TF32
 TOL_VAE = 3e-5
 TOL_CLIP = 2e-5
+# the serving phase: the flagship served over HTTP, class-conditional (1000
+# classes, as ImageNet) with the CFG label drop, 50-step Euler at
+# serve_batch 8, decoding through the random full-width SD-VAE
+SERVE_ARGS = ["model=zigzag8_b1_pe2", "data=synthetic", "data.num_classes=1000",
+              "model.params.class_dropout_prob=0.1", "sample_mode=ODE",
+              "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
+              "vae_kind=sd-vae"]
+SERVE_BATCH = 8
+# the LM of benchmarks/benchmark_generation.py, state-spaces/mamba-130m's
+# shape: d_model 768, 24 layers, vocab 50277 padded to a multiple of 8,
+# RMSNorm, residual in fp32; greedy generate of 128 tokens after a prompt of
+# 128 at batch 8
+LM_SHAPE = dict(d_model=768, n_layer=24, vocab_size=50277, rms_norm=True,
+                residual_in_fp32=True, pad_vocab_size_multiple=8)
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 128
+# the fp32 LM, each as max |err| / max |ref|: prefill through K1 against the
+# plain scan, prefill + steps against steps, and the scores on the card
+# against the CPU; fp32 with TF32 off, so only summation order differs.  The
+# first run on the H100 (H100 80GB HBM3, 700 W) read at most 1.9e-6 (the
+# conv windows) and 1.0e-7 on the scores; bf16 rounding would read near
+# 2^-8.  The bf16 LMs are held to TOL_FORWARD, as the flagship forward: the
+# same run read 3.2e-3 to 2.0e-2 (a Mamba-2 state)
+TOL_LM_FP32 = 2e-5
 
 
 def fail(msg):
@@ -563,7 +607,9 @@ def truth_case(name, gen, batch, L, D, N, dtype, long_memory=False):
     parts, worst = [], 0.0
     for what, k, p, t, ulp in zip(("y", "carries", "x_last"), got, plain,
                                   truth, (ulp_y, 0.0, 0.0)):
-        scale = t.abs().max().item()
+        # a truth of zeros (the chunk starts of a scan of one chunk) is
+        # held absolutely
+        scale = t.abs().max().item() or 1.0
         e_k = ((k.double() - t).abs() - ulp * t.abs()).max().item() / scale
         e_p = (p.double() - t).abs().max().item() / scale
         ratio = e_k / max(e_p, FP32_EPS)
@@ -2366,6 +2412,345 @@ def sample_metrics_phase(ckpt, dirs, tmp):
     return dict(k1=k1, scores=scores)
 
 
+def serve_phase(gen, tmp):
+    """The serving entry point, ``cli.serve``: a ``GenerationWorker`` on the
+    flagship at full width, class-conditional with the CFG label drop, bf16
+    inference cast, 50-step Euler at ``serve_batch`` 8 and a queue of one,
+    decoding through the random full-width SD-VAE (``ZIGMA_VAE_WEIGHTS``,
+    set by the VAE phase), behind a ``ThreadingHTTPServer`` on
+    127.0.0.1.  Checks /healthz; a request for fewer than 8 images, two
+    concurrent requests and a guided one, each answered with decodable
+    256x256 PNGs; equal arrays for equal seeds; a burst of guided requests
+    against the full queue answered in part by 503.  K1 launches exactly
+    24 x 49 a completed request, guided or not; K2 and the plain versions
+    never.  Reports the warm-up seconds, ms a request of 8 and images/s."""
+    import base64
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli.serve import GenerationWorker, make_handler
+
+    per_request = DEPTH * (STEPS - 1)
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 SERVE_ARGS)
+    model = sample_cli.build_model(cfg, device="cuda", generator=gen)
+    with torch.no_grad():  # off the DiT zero-init, so every gate is open
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    ckpt = os.path.join(tmp, "serve.pt")
+    torch.save({"ema": {k: v.cpu() for k, v in model.state_dict().items()}},
+               ckpt)
+    del model
+    cfg = sample_cli.load_config(
+        sample_cli.DEFAULT_CONFIG_DIR, "default",
+        SERVE_ARGS + [f"ckpt={ckpt}", "serve_queue_max=1"])
+    reset_counts()
+    worker = GenerationWorker(cfg, max_batch=SERVE_BATCH)
+    counts = read_counts()
+    if counts != (2 * per_request, 0, 0, 0):
+        fail(f"serve warm-up: K1 / K2 / plain {counts}, expected "
+             f"{2 * per_request} K1 (one unguided and one guided request)")
+    if not worker.is_latent:
+        fail("serve: the SD-VAE codec did not load")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker, cfg))
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            conn.request(method, path,
+                         body=None if body is None else json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    def pngs(resp, n, what):
+        if len(resp["images"]) != n:
+            fail(f"serve {what}: {len(resp['images'])} images, expected {n}")
+        for b in resp["images"]:
+            img = np.asarray(Image.open(io.BytesIO(base64.b64decode(b))))
+            if img.shape != (256, 256, 3) or img.dtype != np.uint8:
+                fail(f"serve {what}: a PNG of {img.shape} {img.dtype}")
+
+    def posts(bodies):
+        """The bodies POSTed at once, one thread each; (status, reply)s in
+        order, and the counts of the whole burst."""
+        out = [None] * len(bodies)
+
+        def one(i):
+            out[i] = call("POST", "/generate", bodies[i])
+
+        reset_counts()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+            time.sleep(0.05)  # in this order into the queue
+        for t in threads:
+            t.join(600)
+        if any(t.is_alive() for t in threads):
+            fail("serve: a request did not come back within 600 s")
+        return out, read_counts()
+
+    try:
+        code, health = call("GET", "/healthz")
+        if code != 200 or health["backend"] != "cuda" or \
+                health["max_batch"] != SERVE_BATCH:
+            fail(f"serve /healthz: {code} {health}")
+        print(f"serve /healthz: {health}", flush=True)
+        checks = (("n 3 < max_batch", [{"n": 3, "seed": 1, "cls": 207}]),
+                  ("two concurrent", [{"n": 8, "seed": 2, "cls": 1},
+                                      {"n": 8, "seed": 3, "cls": 2}]),
+                  ("guided cfg 4", [{"n": 8, "seed": 4, "cls": 3,
+                                     "cfg_scale": 4.0}]))
+        for what, bodies in checks:
+            out, counts = posts(bodies)
+            for (code, resp), body in zip(out, bodies):
+                if code != 200:
+                    fail(f"serve {what}: HTTP {code} {resp}")
+                pngs(resp, body["n"], what)
+            if counts != (per_request * len(bodies), 0, 0, 0):
+                fail(f"serve {what}: K1 / K2 / plain {counts}, expected "
+                     f"{per_request} K1 a request")
+            print(f"serve {what}: {[r['ms'] for _, r in out]} ms; K1 "
+                  f"{counts[0]} launches ({per_request} a request)",
+                  flush=True)
+        reset_counts()
+        a = worker.submit(n=2, seed=5, cls=9)
+        b = worker.submit(n=2, seed=5, cls=9)
+        if read_counts() != (2 * per_request, 0, 0, 0) or \
+                not np.array_equal(a, b):
+            fail("serve: two requests with the same seed differ")
+        print(f"serve: two requests with seed 5 gave equal {a.shape} "
+              f"arrays", flush=True)
+        # the queue holds one: with one guided request in flight (~2 s) and
+        # one waiting, the later ones wait 1 s for room and get 503
+        burst = [{"n": 8, "seed": 10 + i, "cls": i, "cfg_scale": 4.0}
+                 for i in range(4)]
+        out, counts = posts(burst)
+        codes = [c for c, _ in out]
+        done = codes.count(200)
+        if 503 not in codes or set(codes) - {200, 503} or done < 2 or \
+                counts != (per_request * done, 0, 0, 0):
+            fail(f"serve burst against a queue of one: HTTP {codes}, K1 / "
+                 f"K2 / plain {counts}")
+        print(f"serve burst of 4 guided requests against a queue of one: "
+              f"HTTP {codes}; K1 {counts[0]} launches", flush=True)
+        times = []
+        for i in range(3):  # a request of 8 at a time, decode and PNGs in
+            reset_counts()
+            t0 = time.perf_counter()
+            code, resp = call("POST", "/generate",
+                              {"n": SERVE_BATCH, "seed": 20 + i, "cls": i})
+            times.append((time.perf_counter() - t0) * 1e3)
+            if code != 200 or read_counts() != (per_request, 0, 0, 0):
+                fail(f"serve timing request: HTTP {code}, {read_counts()}")
+        ms = statistics.median(times)
+        # the parts of a request, on this thread while the worker is idle
+        y = torch.full((SERVE_BATCH,), 1, device="cuda")
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            lat = worker._generate(30, y, 1.0, False).float().cpu().numpy()
+            t1 = time.perf_counter()
+            worker.codec.decode(lat)
+            t2 = time.perf_counter()
+        sample_ms, decode_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+        print(f"serve flagship, 50-step Euler, batch {SERVE_BATCH}, SD-VAE "
+              f"decode and PNGs: {ms:.1f} ms a request (median of "
+              f"{[round(t, 1) for t in times]}), "
+              f"{SERVE_BATCH * 1e3 / ms:.3f} images/s; of it sampling "
+              f"{sample_ms:.1f} ms, decode {decode_ms:.1f} ms, the rest "
+              f"(PNGs, HTTP, queue) {ms - sample_ms - decode_ms:.1f} ms; "
+              f"warm-up {worker.compile_s} s", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.close()
+    return dict(k1=per_request, warmup_s=worker.compile_s, ms=ms,
+                images_per_s=SERVE_BATCH * 1e3 / ms, sample_ms=sample_ms,
+                decode_ms=decode_ms)
+
+
+def lm_model(gen, dtype, **kw):
+    """The benchmark's LM (``LM_SHAPE`` unless ``kw`` overrides) with random
+    weights from ``gen``, on the card."""
+    from zigma_tpu_torch.models.lm import MambaLMHeadModel
+    return MambaLMHeadModel(**{**LM_SHAPE, **kw}, dtype=dtype, device="cuda",
+                            generator=gen).eval()
+
+
+def set_scan_backend(model, backend):
+    for layer in model.backbone.layers:
+        layer.mixer.scan_backend = backend
+
+
+def lm_cache_checks(name, model, ids, tol):
+    """Prefill logits and caches against the same model with its plain
+    scan, and prefill + 4 steps against steps from empty caches; each as
+    max |err| / max |ref| within ``tol``.  Returns the worst ratio."""
+    import torch
+    n_prompt = ids.shape[1] - 4
+    with torch.inference_mode():
+        logits, caches = model.prefill(ids[:, :n_prompt])
+        set_scan_backend(model, "ref")
+        ref_logits, ref_caches = model.prefill(ids[:, :n_prompt])
+        set_scan_backend(model, "auto")
+        errs = {"prefill logits": rel_err(logits, ref_logits)[1],
+                "prefill states": max(rel_err(a[1], b[1])[1]
+                                      for a, b in zip(caches, ref_caches)),
+                "prefill windows": max(rel_err(a[0], b[0])[1]
+                                       for a, b in zip(caches, ref_caches))}
+        for t in range(n_prompt, ids.shape[1]):
+            logits, caches = model.step(ids[:, t:t + 1], caches)
+        steps = model.init_caches(ids.shape[0])
+        for t in range(ids.shape[1]):
+            step_logits, steps = model.step(ids[:, t:t + 1], steps)
+        torch.cuda.synchronize()
+    errs["prefill+4 vs steps logits"] = rel_err(logits, step_logits)[1]
+    errs["prefill+4 vs steps states"] = max(rel_err(a[1], b[1])[1]
+                                            for a, b in zip(caches, steps))
+    errs["prefill+4 vs steps windows"] = max(rel_err(a[0], b[0])[1]
+                                             for a, b in zip(caches, steps))
+    print(f"{name}: of max |ref|, " + "; ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {tol})",
+        flush=True)
+    for k, v in errs.items():
+        if not v <= tol:
+            fail(f"{name}: {k} {v:.3e} of max |ref| > {tol}")
+    return max(errs.values())
+
+
+def lm_phase(gen):
+    """The LM's serving path (``models.lm``) at the shape of
+    ``benchmarks/benchmark_generation.py`` (state-spaces/mamba-130m's):
+    K1 at its prefill shape against the plain version and the float64
+    truth, timed beside the bound; the prefill through K1 against the plain
+    scan and prefill + steps against steps, in bf16 and fp32, and the same
+    for a depth-4 Mamba-2 LM; ``loglikelihood_batch`` on the card against
+    the CPU; then ``generate``'s prefill, decode and launch counts, a decode
+    token's profile and the benchmark tool's line."""
+    import torch
+    from zigma_tpu_torch.evals import loglikelihood_batch
+    from zigma_tpu_torch.models.lm import generate
+    from zigma_tpu_torch.ops.scan_cuda import selective_scan_fwd_cuda
+    from zigma_tpu_torch.ops.selective_scan import selective_scan_ref
+    from zigma_tpu_torch.tools import benchmark_generation
+
+    bf, f32 = torch.bfloat16, torch.float32
+    B_, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    shp = dict(batch=B_, L=P, D=2 * LM_SHAPE["d_model"], N=16)
+    d, errs = check_kernel_case(f"K1 LM prefill {tuple(shp.values())} bf16 "
+                                f"fused", gen, **shp, dtype=bf, fused=True,
+                                with_x0=False)
+    worst = max(truth_case(f"f64 truth: {kind}LM prefill bf16", gen, **shp,
+                           dtype=bf, long_memory=bool(kind))
+                for kind in ("", "long-memory "))
+    args = (d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"],
+            d["Dskip"], d["z"])
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: selective_scan_fwd_cuda(
+            *args, return_carries=False), reps=50)
+        plain_ms = cuda_ms(lambda: selective_scan_ref(
+            d["u"], d["delta"], d["A"], d["B"], d["C"], d["Dskip"], d["z"],
+            d["bias"], True), reps=1, groups=3)
+    bound_ms, bound_by, how = least_time(*k1_work(*shp.values(), 2))
+    print(f"K1 at the LM prefill {tuple(shp.values())} bf16 fused: "
+          f"{ms:.4f} ms; plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({how}); {ms / bound_ms:.2f}x the bound; f64-truth "
+          f"ratio at most {worst:.2f} (limit {TOL_TRUTH_MULT})", flush=True)
+    k1_lm = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, max_abs_err=errs["y"])
+
+    V = LM_SHAPE["vocab_size"]
+    model = lm_model(gen, bf)
+    print(f"LM: d_model {LM_SHAPE['d_model']}, {LM_SHAPE['n_layer']} layers, "
+          f"vocab {V} padded to {model.padded_vocab}, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
+          f"bf16", flush=True)
+    ids = torch.randint(0, V, (B_, P + 4), generator=gen, device="cuda")
+    lm_cache_checks("LM bf16 (through K1 vs plain scan; prefill+4 vs 132 "
+                    "steps)", model, ids, TOL_FORWARD)
+    m32 = lm_model(gen, f32)
+    lm_cache_checks("LM fp32", m32, ids, TOL_LM_FP32)
+    mamba2 = lm_model(gen, bf, n_layer=4, ssm_cfg={"ssm_version": 2})
+    lm_cache_checks("Mamba-2 LM depth 4 bf16 (chunked SSD vs sequential)",
+                    mamba2, ids, TOL_FORWARD)
+    del mamba2
+
+    # teacher-forced scores on the card against the same weights on the CPU
+    cpu = lm_model(gen, f32).cpu()
+    cpu.load_state_dict(m32.state_dict())
+    sids = ids[:2, :32].cpu().numpy()
+    mask = torch.zeros(2, 32, dtype=torch.bool)
+    mask[0, 20:], mask[1, 5:] = True, True
+    s, g = loglikelihood_batch(m32, sids, mask.numpy())
+    s_c, g_c = loglikelihood_batch(cpu, sids, mask.numpy())
+    _, rel = rel_err(s.cpu(), s_c)
+    print(f"loglikelihood_batch fp32, card vs CPU: sums {s.tolist()} vs "
+          f"{s_c.tolist()}, {rel:.3e} of max |CPU| (limit {TOL_LM_FP32}); "
+          f"greedy {g.tolist()} vs {g_c.tolist()}", flush=True)
+    if not rel <= TOL_LM_FP32 or not torch.equal(g.cpu(), g_c):
+        fail("loglikelihood_batch on the card disagrees with the CPU")
+    del cpu, m32
+
+    # greedy generate at the benchmark's shape
+    prompt = ids[:, :P]
+    generate(model, prompt, G)  # warm-up
+    reset_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = generate(model, prompt, G)
+    b.record()
+    torch.cuda.synchronize()
+    gen_ms = a.elapsed_time(b)
+    counts = read_counts()
+    if counts != (LM_SHAPE["n_layer"], 0, 0, 0):
+        fail(f"LM generate: K1 / K2 / plain {counts}, expected "
+             f"{LM_SHAPE['n_layer']} K1 (the prefill) and nothing else")
+    if out.shape != (B_, P + G) or not torch.equal(out[:, :P], prompt) or \
+            int(out.min()) < 0 or int(out.max()) >= model.padded_vocab:
+        fail(f"LM generate: output {tuple(out.shape)} out of range")
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: model.prefill(prompt), reps=5)
+        _, caches = model.prefill(prompt)
+        tok = out[:, P:P + 1]
+        reset_counts()
+        step_ms = cuda_ms(lambda: model.step(tok, caches), reps=16)
+        if read_counts()[0]:
+            fail(f"LM decode steps launched K1 {read_counts()[0]} times")
+
+    def decode_step():
+        with torch.inference_mode():
+            model.step(tok, caches)
+
+    busy, wall, n_kernels = profile_phase(f"one LM decode step (batch {B_})",
+                                          decode_step)
+    print(f"LM greedy generate, prompt {P} + {G} x batch {B_}: "
+          f"{gen_ms:.1f} ms ({B_ * G / gen_ms * 1e3:.1f} generated tok/s); "
+          f"prefill {prefill_ms:.3f} ms; decode {step_ms:.3f} ms a token "
+          f"step; {n_kernels} kernel launches a decode step; device idle "
+          f"{100 * (1 - busy / wall):.1f}% of a decode step; K1 "
+          f"{counts[0]} launches a generate call (all in the prefill), 0 a "
+          f"decode step", flush=True)
+    del model
+    phase("benchmark_generation (the tool, default shape)")
+    tool = benchmark_generation.main(["--repeats", "2"])
+    return dict(k1=counts[0], k1_lm=k1_lm, gen_ms=gen_ms,
+                gen_tok_per_s=B_ * G / gen_ms * 1e3, prefill_ms=prefill_ms,
+                step_ms=step_ms, kernels_per_step=n_kernels,
+                idle_share=1 - busy / wall, tool_ms=tool["ms"])
+
+
 def _kind(key):
     k = key.lower()
     return ("K1 selective scan fwd" if "selective_scan_fwd" in k else
@@ -2385,7 +2770,7 @@ def _kind(key):
 
 def profile_phase(what, fn):
     """Device time of one call of ``fn`` (after one warm-up call), by kind
-    and by kernel.  Returns (device busy ms, wall ms)."""
+    and by kernel.  Returns (device busy ms, wall ms, kernel launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2422,7 +2807,7 @@ def profile_phase(what, fn):
         print(f"{e.self_device_time_total / 1e3:15.3f} "
               f"{100 * e.self_device_time_total / total:6.1f}% {e.count:6d}  "
               f"{e.key[:90]}", flush=True)
-    return total / 1e3, wall_us / 1e3
+    return total / 1e3, wall_us / 1e3, sum(e.count for e in rows)
 
 
 def train_step_fn(state, gen, x_shape, num_classes=-1, text=None):
@@ -2578,11 +2963,11 @@ def main():
 
         profile_phase("one flagship forward (sampling)", forward)
         del model
-        syn_busy, syn_wall = profile_phase(
+        syn_busy, syn_wall, _ = profile_phase(
             f"one flagship training step (batch {BATCH})",
             train_step_fn(state, gen, (BATCH, 4, 32, 32)))
         del state
-        sh_busy, sh_wall = profile_phase(
+        sh_busy, sh_wall, _ = profile_phase(
             f"one flagship training step from churches shards (batch "
             f"{BATCH}, the loader's thread running)",
             shard_step_fn(sh["churches"].pop("state"), sh["churches"]["args"]))
@@ -2619,6 +3004,12 @@ def main():
         vev = video_eval_phase(dirs, tmp)
         phase("sample CLI metrics (churches validation split)")
         sm = sample_metrics_phase(e2e["ckpt"], dirs, tmp)
+        phase("serve (cli.serve: the flagship over HTTP, batch 8, SD-VAE "
+              "decode)")
+        sv = serve_phase(gen, tmp)
+    phase("LM (models.lm at state-spaces/mamba-130m's shape: prefill "
+          "through K1, cached decode)")
+    lm = lm_phase(gen)
 
     kernels = [
         dict(name="selective_scan_fwd", route="cuda",
@@ -2643,12 +3034,15 @@ def main():
                                "likelihood_validation": dec["lik_k1"],
                                "train_churches_eval": ev["k1"],
                                "train_ucf101_eval": vev["k1"],
-                               "sample_metrics": sm["k1"]},
+                               "sample_metrics": sm["k1"],
+                               "serve_request": sv["k1"],
+                               "lm_generate": lm["k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
-             video_shapes=kv["K1"], shapes_1024=k1_1024),
+             video_shapes=kv["K1"], shapes_1024=k1_1024,
+             lm_prefill_shape=lm["k1_lm"]),
         dict(name="selective_scan_bwd", route="cuda",
              source="zigma_tpu_torch/csrc/selective_scan_bwd.cu",
              replaces="zigma_tpu/ops/scan_pallas.py:418",
@@ -2661,7 +3055,8 @@ def main():
                                "train_ucf101_shards": sh["ucf101"]["k2"],
                                "likelihood_validation": dec["lik_k2"],
                                "train_churches_eval": ev["k2"],
-                               "train_ucf101_eval": vev["k2"]},
+                               "train_ucf101_eval": vev["k2"],
+                               "serve_request": 0, "lm_generate": 0},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
@@ -2701,7 +3096,13 @@ def main():
           + f"; image eval of {EVAL_N} {ev['total_s']:.2f} s (sampling "
           f"{ev['seconds']['sample']:.2f}), video eval of {VIDEO_EVAL_N} "
           f"{vev['total_s']:.2f} s; fid {ev['scores']['fid']:.4f}, fvd "
-          f"{vev['scores']['fvd']:.4f} (random nets, random weights)")
+          f"{vev['scores']['fvd']:.4f} (random nets, random weights); serve "
+          f"{sv['ms']:.1f} ms a request of {SERVE_BATCH}, "
+          f"{sv['images_per_s']:.3f} images/s, warm-up {sv['warmup_s']} s; "
+          f"LM prefill {lm['prefill_ms']:.3f} ms, decode {lm['step_ms']:.3f} "
+          f"ms a token step, generate {lm['gen_tok_per_s']:.1f} tok/s, "
+          f"{lm['kernels_per_step']} launches a decode step, idle "
+          f"{100 * lm['idle_share']:.1f}%")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -582,3 +582,91 @@ def test_tiny_text_and_ssm2_models_on_the_card(gen, kind):
     assert abs(loss_k - loss_r) <= TOL_FP32 * abs(loss_r)
     for n in gr:
         assert _rel(gk[n], gr[n]) <= TOL_FP32, n
+
+
+def test_lm_prefill_runs_k1_and_matches_the_plain_scan(gen):
+    """A small fp32 LM on the card: the prefill launches K1 once a layer
+    (with the final state) and no plain scan; its logits and caches match
+    the same model with the plain scan, and prefill + steps match steps
+    from empty caches; decode steps launch no K1."""
+    from zigma_tpu_torch.models.lm import MambaLMHeadModel, generate
+    model = MambaLMHeadModel(64, 3, 100, ssm_cfg={"d_state": 16},
+                             rms_norm=True, residual_in_fp32=True,
+                             device="cuda", generator=gen).eval()
+    ids = torch.randint(0, 100, (2, 20), generator=gen, device="cuda")
+    scan_cuda.selective_scan_fwd_cuda.launches = 0
+    selective_scan_ref.calls = 0
+    with torch.inference_mode():
+        logits, caches = model.prefill(ids)
+        assert scan_cuda.selective_scan_fwd_cuda.launches == 3
+        assert selective_scan_ref.calls == 0
+        for layer in model.backbone.layers:
+            layer.mixer.scan_backend = "ref"
+        ref_logits, ref_caches = model.prefill(ids)
+        for layer in model.backbone.layers:
+            layer.mixer.scan_backend = "auto"
+        torch.testing.assert_close(logits, ref_logits, atol=1e-4, rtol=1e-4)
+        for i, ((a0, a1), (b0, b1)) in enumerate(zip(caches, ref_caches)):
+            if i == 0:  # the first window precedes every scan
+                assert torch.equal(a0, b0)
+            torch.testing.assert_close(a0, b0, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(a1, b1, atol=1e-4, rtol=1e-4)
+        step_caches = model.init_caches(2)
+        for t in range(20):
+            step_logits, step_caches = model.step(ids[:, t:t + 1],
+                                                  step_caches)
+        torch.testing.assert_close(step_logits[:, 0], logits, atol=1e-4,
+                                   rtol=1e-4)
+    scan_cuda.selective_scan_fwd_cuda.launches = 0
+    out = generate(model, ids, 5)
+    assert out.shape == (2, 25)
+    assert scan_cuda.selective_scan_fwd_cuda.launches == 3
+
+
+def test_decode_ops_on_the_card_match_the_cpu(gen):
+    from zigma_tpu_torch.ops import causal_conv1d_update, selective_state_update
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    state, x, dt, A = r(4, 96, 16), r(4, 96), 0.5 * r(4, 96), -torch.exp(r(96, 16))
+    B, C, D, z, bias = r(4, 16), r(4, 16), r(96), r(4, 96), 0.1 * r(96)
+    args = (state, x, dt, A, B, C, D, z, bias, True)
+    y, st = selective_state_update(*args)
+    y_c, st_c = selective_state_update(*(a.cpu() if torch.is_tensor(a) else a
+                                         for a in args))
+    torch.testing.assert_close(y.cpu(), y_c, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(st.cpu(), st_c, atol=1e-5, rtol=1e-5)
+    win, w, b = r(4, 4, 96), r(96, 4), r(96)
+    out, new = causal_conv1d_update(x, win, w, b)
+    out_c, new_c = causal_conv1d_update(x.cpu(), win.cpu(), w.cpu(), b.cpu())
+    torch.testing.assert_close(out.cpu(), out_c, atol=1e-5, rtol=1e-5)
+    assert torch.equal(new.cpu(), new_c)
+
+
+def test_server_worker_on_the_card(gen, tmp_path):
+    """The serving worker on the card at a tiny size: unguided and guided
+    requests, each exactly depth x (steps - 1) K1 launches, and equal
+    arrays for equal seeds."""
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli.serve import GenerationWorker
+    over = ["data=synthetic", "data.num_classes=5",
+            "model.params.class_dropout_prob=0.1", "model.params.embed_dim=64",
+            "model.params.depth=2", "model.params.img_dim=8",
+            "sample_mode=ODE", "ode.sampling_method=euler",
+            "ode.num_sampling_steps=4", "vae_kind=identity"]
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default", over)
+    model = sample_cli.build_model(cfg, device="cuda", generator=gen)
+    path = str(tmp_path / "tiny.pt")
+    torch.save({"ema": {k: v.cpu() for k, v in model.state_dict().items()}},
+               path)
+    w = GenerationWorker(sample_cli.load_config(
+        sample_cli.DEFAULT_CONFIG_DIR, "default", over + [f"ckpt={path}"]),
+        max_batch=4)
+    try:
+        for scale in (1.0, 3.0):
+            scan_cuda.selective_scan_fwd_cuda.launches = 0
+            a = w.submit(n=2, seed=3, cls=1, cfg_scale=scale)
+            assert scan_cuda.selective_scan_fwd_cuda.launches == 2 * 3
+            b = w.submit(n=2, seed=3, cls=1, cfg_scale=scale)
+            assert a.shape == (2, 4, 8, 8)
+            assert (a == b).all()
+    finally:
+        w.close()

@@ -48,6 +48,18 @@ Mamba-2, so the names are the public ``mamba_ssm`` Mamba2 module's):
     ssd.A_log, ssd.dt_bias, ssd.D   -> mixer.A_log, mixer.dt_bias, mixer.D
     ssd_b.*                         -> the same with ``_b`` after the first
                                        word: conv1d_b, A_b_log, dt_b_bias, D_b
+
+The Mamba LM (``lm_state_dict_from_jax``, the tree of
+``zigma_tpu/models/lm.py``) goes to the reference's names
+(``mixer_seq_simple.py``), as ``models/lm.py`` carries them:
+
+    backbone.embedding.embedding    -> backbone.embedding.weight, and the
+                                       tied lm_head.weight
+    backbone.layers_{i}.norm_weight -> backbone.layers.{i}.norm.weight
+    (norm_bias)                        (.norm.bias, LayerNorm)
+    backbone.layers_{i}.mixer       -> backbone.layers.{i}.mixer.*, as a
+                                       ZigMa block's mixer
+    backbone.norm_f_weight (_bias)  -> backbone.norm_f.weight (.bias)
 """
 
 from __future__ import annotations
@@ -58,7 +70,7 @@ import torch
 __all__ = ["state_dict_from_jax", "vae_state_dict_from_jax",
            "clip_state_dict_from_jax", "inception_state_dict_from_jax",
            "dinov2_state_dict_from_jax", "i3d_state_dict_from_jax",
-           "lpips_state_dicts_from_jax"]
+           "lpips_state_dicts_from_jax", "lm_state_dict_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -111,26 +123,30 @@ def _block(sd: dict, pre: str, blk: dict):
         for name in ("to_q", "to_k", "to_v"):
             _dense(sd, f"{pre}.msa.{name}", blk["msa"][name])
         _dense(sd, f"{pre}.msa.to_out.0", blk["msa"]["to_out"])
-    mixer = dict(blk["mixer"])
-    _dense(sd, f"{pre}.mixer.in_proj", mixer.pop("in_proj"))
-    _dense(sd, f"{pre}.mixer.out_proj", mixer.pop("out_proj"))
+    _mixer(sd, f"{pre}.mixer", blk["mixer"])
+
+
+def _mixer(sd: dict, pre: str, tree: dict):
+    """A Mamba (``scan``, ``scan_b``, ``scan_b{j}``) or Mamba-2 (``ssd``,
+    ``ssd_b``) mixer's tree under the names ``pre``.*."""
+    mixer = dict(tree)
+    _dense(sd, f"{pre}.in_proj", mixer.pop("in_proj"))
+    _dense(sd, f"{pre}.out_proj", mixer.pop("out_proj"))
     if "ssd" in mixer:  # Mamba-2
-        sd[f"{pre}.mixer.norm.weight"] = _tensor(mixer.pop("norm_weight"))
-        _ssd_branch(sd, f"{pre}.mixer", mixer.pop("ssd"), "")
+        sd[f"{pre}.norm.weight"] = _tensor(mixer.pop("norm_weight"))
+        _ssd_branch(sd, pre, mixer.pop("ssd"), "")
         if "ssd_b" in mixer:
-            _ssd_branch(sd, f"{pre}.mixer", mixer.pop("ssd_b"), "_b")
-        if mixer:
-            raise ValueError(f"{pre}.mixer: unknown JAX params {sorted(mixer)}")
-        return
-    _branch(sd, f"{pre}.mixer", mixer.pop("scan"), "")
-    if "scan_b" in mixer:
-        _branch(sd, f"{pre}.mixer", mixer.pop("scan_b"), "_b")
-    j = 0
-    while f"scan_b{j}" in mixer:  # parallelN
-        _branch(sd, f"{pre}.mixer", mixer.pop(f"scan_b{j}"), "", f".{j}")
-        j += 1
+            _ssd_branch(sd, pre, mixer.pop("ssd_b"), "_b")
+    else:
+        _branch(sd, pre, mixer.pop("scan"), "")
+        if "scan_b" in mixer:
+            _branch(sd, pre, mixer.pop("scan_b"), "_b")
+        j = 0
+        while f"scan_b{j}" in mixer:  # parallelN
+            _branch(sd, pre, mixer.pop(f"scan_b{j}"), "", f".{j}")
+            j += 1
     if mixer:
-        raise ValueError(f"{pre}.mixer: unknown JAX params {sorted(mixer)}")
+        raise ValueError(f"{pre}: unknown JAX params {sorted(mixer)}")
 
 
 def _unstack(tree, i: int):
@@ -346,3 +362,29 @@ def lpips_state_dicts_from_jax(params: dict):
         heads[f"lin{i}.model.1.weight"] = _tensor(w.reshape(1, -1, 1, 1))
         i += 1
     return alex, heads
+
+
+def lm_state_dict_from_jax(params: dict) -> dict:
+    """The JAX ``MambaLMHeadModel`` tree (numpy leaves, ``{"params": ...}``
+    or bare) -> the state dict of ``models.lm.MambaLMHeadModel``."""
+    bb = dict(params.get("params", params)["backbone"])
+    emb = _tensor(bb.pop("embedding")["embedding"])
+    sd = {"backbone.embedding.weight": emb}
+    i = 0
+    while f"layers_{i}" in bb:
+        layer = dict(bb.pop(f"layers_{i}"))
+        pre = f"backbone.layers.{i}"
+        sd[f"{pre}.norm.weight"] = _tensor(layer.pop("norm_weight"))
+        if "norm_bias" in layer:
+            sd[f"{pre}.norm.bias"] = _tensor(layer.pop("norm_bias"))
+        _mixer(sd, f"{pre}.mixer", layer.pop("mixer"))
+        if layer:
+            raise ValueError(f"{pre}: unknown JAX params {sorted(layer)}")
+        i += 1
+    sd["backbone.norm_f.weight"] = _tensor(bb.pop("norm_f_weight"))
+    if "norm_f_bias" in bb:
+        sd["backbone.norm_f.bias"] = _tensor(bb.pop("norm_f_bias"))
+    if bb:
+        raise ValueError(f"backbone: unknown JAX params {sorted(bb)}")
+    sd["lm_head.weight"] = emb
+    return sd

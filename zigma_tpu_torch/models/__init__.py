@@ -1,8 +1,9 @@
-from zigma_tpu_torch.models.mamba import Mamba
-from zigma_tpu_torch.models.mamba2 import Mamba2
+from zigma_tpu_torch.models.mamba import Mamba, MambaCache
+from zigma_tpu_torch.models.mamba2 import Mamba2, Mamba2Cache
 from zigma_tpu_torch.models.zigma import (ZIGMA_PRESETS, CrossAttention,
                                           FinalLayer, ZigMa, ZigMaBlock,
                                           zigma_flops)
 
-__all__ = ["Mamba", "Mamba2", "ZIGMA_PRESETS", "CrossAttention", "FinalLayer",
-           "ZigMa", "ZigMaBlock", "zigma_flops"]
+__all__ = ["Mamba", "MambaCache", "Mamba2", "Mamba2Cache", "ZIGMA_PRESETS",
+           "CrossAttention", "FinalLayer", "ZigMa", "ZigMaBlock",
+           "zigma_flops"]

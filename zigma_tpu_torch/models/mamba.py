@@ -22,7 +22,14 @@ On CUDA the scan is the hand-written kernels (K1 forward, K2 backward) with
 the ``(y + u*D)*silu(z)`` gate fused in.  The scan-path gathers go through
 ``permute_tokens``, whose backward is the gather by the functional inverse
 of the permutation (``vjp_inverse``), not torch indexing's scatter-add.
-The decode ``step``/``prefill`` is a later slice of the port.
+
+Decode (the LM's, ``models/lm.py``): ``step`` takes one token and a
+``MambaCache`` (the last ``d_conv`` pre-conv inputs and the fp32 SSM
+state) and is direction-less, as in JAX: it uses the first branch.
+``prefill`` runs a v1 prompt through the parallel scan with its final state
+(K1 on CUDA) and returns the output with the cache the steps continue
+from.  Both run without a gradient: the scan's final state under autograd
+is a later slice (``ops/selective_scan.py``).
 """
 
 from __future__ import annotations
@@ -38,11 +45,13 @@ from torch import nn
 from zigma_tpu_torch.models.embedders import dense
 from zigma_tpu_torch.models.inits import (rescaled_linear_init_,
                                           torch_linear_init_, uniform_)
-from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
-from zigma_tpu_torch.ops.selective_scan import selective_scan
+from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
+                                               causal_conv1d_update)
+from zigma_tpu_torch.ops.selective_scan import (selective_scan,
+                                                selective_state_update)
 
-__all__ = ["Mamba", "permute_tokens", "vjp_inverse", "fold_frames",
-           "unfold_frames", "register_path_tables"]
+__all__ = ["Mamba", "MambaCache", "permute_tokens", "vjp_inverse",
+           "fold_frames", "unfold_frames", "register_path_tables"]
 
 _VIDEO_SCANS = ("video_", "zzvideo_")
 _SCANS = ("v1", "v2", "zigzagN", "hilbertN", "randomN", "parallelN",
@@ -126,6 +135,29 @@ def register_path_tables(module: nn.Module, perm, perm_rev, video: bool,
             name, None if p is None else torch.as_tensor(
                 np.asarray(p), dtype=torch.long, device=device),
             persistent=False)
+
+
+def conv_window(x, d_conv: int, dtype: torch.dtype):
+    """The rolling conv window a prefill leaves: the last ``d_conv`` rows
+    of x (batch, L, c), zeros to the left where L < d_conv, in ``dtype``."""
+    x = x[:, -d_conv:].to(dtype)
+    return F.pad(x, (0, 0, d_conv - x.shape[1], 0)).contiguous()
+
+
+class MambaCache:
+    """Per-layer decode cache: ``(conv_state (batch, d_conv, d_inner) in
+    CONV_DTYPE, ssm_state (batch, d_inner, d_state) fp32)``.  ``prefill``
+    returns its conv window in the same dtype."""
+
+    CONV_DTYPE = torch.float32
+
+    @staticmethod
+    def init(batch: int, d_inner: int, d_conv: int, d_state: int,
+             device=None):
+        return (torch.zeros((batch, d_conv, d_inner),
+                            dtype=MambaCache.CONV_DTYPE, device=device),
+                torch.zeros((batch, d_inner, d_state), dtype=torch.float32,
+                            device=device))
 
 
 class Mamba(nn.Module):
@@ -256,19 +288,27 @@ class Mamba(nn.Module):
             A_log.copy_(torch.log(A))
             D.fill_(1.0)
 
-    def _scan_branch(self, branch, x_in, z):
-        """conv -> x_proj -> dt_proj -> selective scan for one branch of
-        ``_branches()``; returns the gated scan output."""
-        conv, x_proj, dt_proj, A_log, D = branch
-        x_c = causal_conv1d(x_in, conv.weight[:, 0, :], conv.bias,
-                            activation="silu", accum_dtype=self.conv_accum)
+    def _features(self, branch, x_c):
+        """x_proj -> (delta without its bias, B, C) and A = -exp(A_log)."""
+        _, x_proj, dt_proj, A_log, _ = branch
         x_dbl = F.linear(x_c, x_proj.weight.to(self.dtype))
         dt, Bv, Cv = x_dbl.split([self.dt_rank, self.d_state, self.d_state], -1)
         delta = F.linear(dt, dt_proj.weight.to(self.dtype))  # bias: in the scan
-        A = -torch.exp(A_log.float())
+        return delta, Bv, Cv, -torch.exp(A_log.float())
+
+    def _scan_branch(self, branch, x_in, z, return_last_state=False):
+        """conv -> x_proj -> dt_proj -> selective scan for one branch of
+        ``_branches()``; returns the gated scan output (and the final
+        state)."""
+        conv, _, dt_proj, _, D = branch
+        x_c = causal_conv1d(x_in, conv.weight[:, 0, :], conv.bias,
+                            activation="silu", accum_dtype=self.conv_accum)
+        delta, Bv, Cv, A = self._features(branch, x_c)
         return selective_scan(x_c, delta, A, Bv, Cv, D.float(), z=z,
                               delta_bias=dt_proj.bias.float(),
-                              delta_softplus=True, backend=self.scan_backend)
+                              delta_softplus=True,
+                              return_last_state=return_last_state,
+                              backend=self.scan_backend)
 
     def forward(self, x):
         """x: (batch, L, d_model) -> (batch, L, d_model)."""
@@ -296,3 +336,35 @@ class Mamba(nn.Module):
         if self.video:
             out = unfold_frames(out, B_, self.video_frames, self.st)
         return out
+
+    def step(self, x, cache):
+        """One decode token.  x: (batch, 1, d_model); cache from
+        ``MambaCache.init`` or ``prefill``.  Returns (out (batch, 1,
+        d_model), new cache)."""
+        conv_state, ssm_state = cache
+        x_in, z = dense(self.in_proj, x[:, 0], self.dtype).chunk(2, dim=-1)
+        branch = self._branches()[0]
+        conv, _, dt_proj, _, D = branch
+        x_c, conv_state = causal_conv1d_update(
+            x_in, conv_state, conv.weight[:, 0, :], conv.bias,
+            accum_dtype=self.conv_accum)
+        delta, Bv, Cv, A = self._features(branch, x_c)
+        y, ssm_state = selective_state_update(
+            ssm_state, x_c, delta, A, Bv, Cv, D.float(), z=z,
+            dt_bias=dt_proj.bias.float(), dt_softplus=True)
+        return dense(self.out_proj, y, self.dtype)[:, None], (conv_state,
+                                                              ssm_state)
+
+    def prefill(self, x):
+        """A v1 prompt through the parallel scan: (out (batch, L, d_model),
+        the cache ``step`` continues from)."""
+        if self.scan_type != "v1":
+            raise ValueError(
+                f"prefill/decode requires scan_type='v1', got "
+                f"{self.scan_type!r}: bidirectional or permuted scans have "
+                f"no causal decode order")
+        x_in, z = dense(self.in_proj, x, self.dtype).chunk(2, dim=-1)
+        y, ssm_state = self._scan_branch(self._branches()[0], x_in, z,
+                                         return_last_state=True)
+        conv_state = conv_window(x_in, self.d_conv, MambaCache.CONV_DTYPE)
+        return dense(self.out_proj, y, self.dtype), (conv_state, ssm_state)

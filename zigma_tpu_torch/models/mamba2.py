@@ -19,8 +19,14 @@ Counterpart of ``zigma_tpu/models/mamba2.py`` (``Mamba2`` and its
 The scan-path permutations and the video folds are ``Mamba``'s: tokens are
 permuted before ``in_proj`` and back after ``out_proj`` through
 ``permute_tokens``, whose backward takes ``vjp_inverse``.  ``parallelN``
-is a Mamba-1 construct and raises, as in JAX.  The decode ``step`` and
-``prefill`` come with the LM stack, in a later slice.
+is a Mamba-1 construct and raises, as in JAX.
+
+Decode (the LM's): ``step`` takes one token and a ``Mamba2Cache`` (the
+last ``d_conv`` xBC inputs and the fp32 (H, P, N) state) over
+``ssd_state_update``; ``prefill`` runs a v1 prompt through ``ssd_scan(...,
+return_last_state=True)``.  The prefill's conv window takes the dtype
+``Mamba2Cache.init`` allocates (the JAX prefill gives it the activations'
+dtype, so its caches change dtype between an empty start and a prefill).
 
 Parameter names (the reference has no Mamba-2, so these follow the public
 ``mamba_ssm`` Mamba2 module): ``in_proj.weight``, ``conv1d.weight``
@@ -44,13 +50,29 @@ from torch import nn
 from zigma_tpu_torch.models.embedders import dense
 from zigma_tpu_torch.models.inits import (rescaled_linear_init_,
                                           torch_linear_init_, uniform_)
-from zigma_tpu_torch.models.mamba import (_VIDEO_SCANS, fold_frames,
-                                          permute_tokens, register_path_tables,
-                                          unfold_frames)
-from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
-from zigma_tpu_torch.ops.ssd import ssd_scan
+from zigma_tpu_torch.models.mamba import (_VIDEO_SCANS, conv_window,
+                                          fold_frames, permute_tokens,
+                                          register_path_tables, unfold_frames)
+from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
+                                               causal_conv1d_update)
+from zigma_tpu_torch.ops.ssd import ssd_scan, ssd_state_update
 
-__all__ = ["Mamba2"]
+__all__ = ["Mamba2", "Mamba2Cache"]
+
+
+class Mamba2Cache:
+    """Per-layer decode cache: ``(conv_state (batch, d_conv, conv_dim) in
+    CONV_DTYPE, ssm_state (batch, nheads, headdim, d_state) fp32)``."""
+
+    CONV_DTYPE = torch.float32
+
+    @staticmethod
+    def init(batch: int, conv_dim: int, d_conv: int, nheads: int,
+             headdim: int, d_state: int, device=None):
+        return (torch.zeros((batch, d_conv, conv_dim),
+                            dtype=Mamba2Cache.CONV_DTYPE, device=device),
+                torch.zeros((batch, nheads, headdim, d_state),
+                            dtype=torch.float32, device=device))
 
 
 class _Weight(nn.Module):
@@ -152,22 +174,31 @@ class Mamba2(nn.Module):
             getattr(self, f"D{s}").fill_(1.0)
         self.norm.weight.fill_(1.0)
 
-    def _branch(self, s: str, xbc, dt):
+    def _split(self, xbc_c):
+        """The conv's output (..., conv_dim) -> x (..., H, P), B and C (...,
+        G, N)."""
+        G, N, lead = self.ngroups, self.d_state, xbc_c.shape[:-1]
+        x, Bv, Cv = xbc_c.split([self.d_inner, G * N, G * N], dim=-1)
+        return (x.reshape(*lead, self.nheads, self.headdim),
+                Bv.reshape(*lead, G, N), Cv.reshape(*lead, G, N))
+
+    def _branch(self, s: str, xbc, dt, return_last_state: bool = False):
         """conv -> SSD for direction ``s`` ('' or '_b'): xbc (b, L,
-        conv_dim), dt (b, L, H) -> (b, L, d_inner)."""
+        conv_dim), dt (b, L, H) -> (b, L, d_inner) (and the final
+        state)."""
         B_, L, _ = xbc.shape
-        G, N = self.ngroups, self.d_state
         conv = getattr(self, f"conv1d{s}")
-        xbc = causal_conv1d(xbc, conv.weight[:, 0, :], conv.bias,
-                            activation="silu", accum_dtype=self.conv_accum)
-        x, Bv, Cv = xbc.split([self.d_inner, G * N, G * N], dim=-1)
-        y = ssd_scan(x.reshape(B_, L, self.nheads, self.headdim), dt,
-                     -torch.exp(getattr(self, f"A{s}_log").float()),
-                     Bv.reshape(B_, L, G, N), Cv.reshape(B_, L, G, N),
-                     getattr(self, f"D{s}"), dt_bias=getattr(self, f"dt{s}_bias"),
-                     dt_softplus=True, backend=self.scan_backend,
-                     chunk=self.scan_chunk)
-        return y.reshape(B_, L, self.d_inner)
+        x, Bv, Cv = self._split(causal_conv1d(
+            xbc, conv.weight[:, 0, :], conv.bias, activation="silu",
+            accum_dtype=self.conv_accum))
+        out = ssd_scan(x, dt, -torch.exp(getattr(self, f"A{s}_log").float()),
+                       Bv, Cv, getattr(self, f"D{s}"),
+                       dt_bias=getattr(self, f"dt{s}_bias"), dt_softplus=True,
+                       return_last_state=return_last_state,
+                       backend=self.scan_backend, chunk=self.scan_chunk)
+        if return_last_state:
+            return out[0].reshape(B_, L, self.d_inner), out[1]
+        return out.reshape(B_, L, self.d_inner)
 
     def _gated_norm(self, y, z):
         """``RMSNorm(y * silu(z))`` with per-group fp32 statistics, in the
@@ -195,3 +226,36 @@ class Mamba2(nn.Module):
         if self.video:
             out = unfold_frames(out, B_, self.video_frames, self.st)
         return out
+
+    def step(self, x, cache):
+        """One decode token.  x: (batch, 1, d_model); cache from
+        ``Mamba2Cache.init`` or ``prefill``.  Direction-less, like
+        ``Mamba.step``.  Returns (out (batch, 1, d_model), new cache)."""
+        conv_state, ssm_state = cache
+        z, xbc, dt = dense(self.in_proj, x[:, 0], self.dtype).split(
+            [self.d_inner, self.conv_dim, self.nheads], dim=-1)
+        xbc_c, conv_state = causal_conv1d_update(
+            xbc, conv_state, self.conv1d.weight[:, 0, :], self.conv1d.bias,
+            accum_dtype=self.conv_accum)
+        x_, Bv, Cv = self._split(xbc_c)
+        y, ssm_state = ssd_state_update(
+            ssm_state, x_, dt, -torch.exp(self.A_log.float()), Bv, Cv, self.D,
+            dt_bias=self.dt_bias, dt_softplus=True)
+        out = dense(self.out_proj,
+                    self._gated_norm(y.reshape(-1, self.d_inner), z),
+                    self.dtype)
+        return out[:, None], (conv_state, ssm_state)
+
+    def prefill(self, x):
+        """A v1 prompt through the chunked SSD: (out (batch, L, d_model),
+        the cache ``step`` continues from)."""
+        if self.scan_type != "v1":
+            raise ValueError(
+                f"prefill/decode requires scan_type='v1', got "
+                f"{self.scan_type!r}")
+        z, xbc, dt = dense(self.in_proj, x, self.dtype).split(
+            [self.d_inner, self.conv_dim, self.nheads], dim=-1)
+        y, ssm_state = self._branch("", xbc, dt, return_last_state=True)
+        conv_state = conv_window(xbc, self.d_conv, Mamba2Cache.CONV_DTYPE)
+        return (dense(self.out_proj, self._gated_norm(y, z), self.dtype),
+                (conv_state, ssm_state))

@@ -8,10 +8,12 @@ from zigma_tpu_torch.ops.paths import (
     zigzag_path,
 )
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
-from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
+from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
+                                               causal_conv1d_update)
 from zigma_tpu_torch.ops.selective_scan import (SelectiveScanFn, selective_scan,
                                                 selective_scan_bwd_ref,
-                                                selective_scan_ref)
+                                                selective_scan_ref,
+                                                selective_state_update)
 from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
                                            selective_scan_fwd_cuda)
 from zigma_tpu_torch.ops.ssd import ssd_scan, ssd_scan_ref, ssd_state_update
@@ -28,9 +30,11 @@ __all__ = [
     "layer_norm",
     "rms_norm",
     "causal_conv1d",
+    "causal_conv1d_update",
     "SelectiveScanFn",
     "selective_scan",
     "selective_scan_ref",
+    "selective_state_update",
     "selective_scan_bwd_ref",
     "selective_scan_fwd_cuda",
     "selective_scan_bwd_cuda",

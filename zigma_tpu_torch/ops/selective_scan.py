@@ -17,6 +17,11 @@ backward is ``selective_scan_bwd_cuda`` (CUDA) or ``selective_scan_bwd_ref``
 (CPU).  This slice covers real A with variable (batch, L, N) B/C -- the
 ZigMa path; complex A, grouped or static B/C, and the last state or a seed
 state under autograd are later slices and raise.
+
+``selective_state_update`` is one decode step of the same recurrence in
+plain fp32 torch ops (the JAX package writes it in jnp, not Pallas).  An LM
+prefill is ``selective_scan(..., return_last_state=True)`` without a
+gradient, which on CUDA is one K1 launch.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from zigma_tpu_torch.ops.scan_cuda import (CARRY_EVERY, selective_scan_bwd_cuda,
                                            selective_scan_fwd_cuda)
 
 __all__ = ["selective_scan", "selective_scan_ref", "selective_scan_bwd_ref",
-           "SelectiveScanFn", "kernel_params"]
+           "SelectiveScanFn", "kernel_params", "selective_state_update"]
 
 
 def _check_supported(A, B, C):
@@ -289,6 +294,35 @@ def selective_scan(u, delta, A, B, C,
         if not fused:
             out = _skip_and_gate(out, u, D, z)
     return (out, x_last.transpose(1, 2)) if return_last_state else out
+
+
+def selective_state_update(state, x, dt, A, B, C,
+                           D: Optional[torch.Tensor] = None,
+                           z: Optional[torch.Tensor] = None,
+                           dt_bias: Optional[torch.Tensor] = None,
+                           dt_softplus: bool = False):
+    """One decode step, the counterpart of ``zigma_tpu/ops/selective_scan.py
+    ::selective_state_update``.  state: (batch, d, N); x, dt, z: (batch, d);
+    A: (d, N); B, C: (batch, N); D, dt_bias: (d,).  In fp32:
+    ``dA = exp(dt A)``, ``state' = state dA + dt x B``, ``y = <state', C>
+    (+ D x) (* silu(z))``.  Returns ``(y in x's dtype, state' fp32)``."""
+    if any(t is not None and t.is_complex() for t in (state, A, B, C)):
+        raise NotImplementedError("complex A/B/C (the S4D-complex mode) lands "
+                                  "in a later slice of the port")
+    dtf = dt.float()
+    if dt_bias is not None:
+        dtf = dtf + dt_bias.float()
+    if dt_softplus:
+        dtf = F.softplus(dtf)
+    dA = torch.exp(dtf[..., None] * A.float())                 # (batch, d, N)
+    dBx = (dtf * x.float())[..., None] * B.float()[:, None, :]
+    state = state.float() * dA + dBx
+    y = torch.einsum("bdn,bn->bd", state, C.float())
+    if D is not None:
+        y = y + D.float() * x.float()
+    if z is not None:
+        y = y * F.silu(z.float())
+    return y.to(x.dtype), state
 
 
 def kernel_params(A, D, delta_bias):

@@ -1,1 +1,2 @@
-"""Measurement tools of the port that need a CUDA card (see each module)."""
+"""Measurement tools of the port; they time the CUDA card (see each
+module)."""
