@@ -169,7 +169,40 @@ Phases, each of which fails loudly (non-zero exit, no result line):
                  ``generate`` of 128 tokens after 128 at batch 8: K1 exactly
                  24 a call and 0 a decode step, prefill ms, decode ms a
                  token, tokens/s, launches and idle share of a decode step
-                 (torch.profiler); ``tools/benchmark_generation.py``.
+                 (torch.profiler); ``tools/benchmark_generation.py``;
+34. scan contract -- ``core_full`` / ``core_x0`` under autograd at the
+                 flagship shape, fp32 and bf16 (after the 1024^2 kernels):
+                 K1 seeded with x0 and returning the final state, K2 seeded
+                 by the final state's cotangent and returning dx0, exactly
+                 one launch each a call, with the loss on both outputs, on
+                 y alone and on the final state alone; against the plain
+                 versions and the float64 truth (``truth_f64`` /
+                 ``truth_bwd_f64`` with a seed and ``g_last``);
+35. sequence parallel -- the flagship scan (fused; bf16 and fp32) over 4
+                 virtual shards of 256 tokens: pass 1, ``prefix_states``,
+                 pass 2, as ``selective_scan_seq_parallel`` runs them with
+                 the stack for the all-gather; exactly 8 K1 and 8 K2;
+                 outputs and gradients against the unsharded kernels and
+                 the float64 truth; times beside the unsharded scan's; K1
+                 and K2 at (16, 256, 1536, 16) as the passes call them,
+                 beside their bounds (the SSD over 4 shards is held in the
+                 SSD truth phase, 21);
+36. distributed training -- ``cli.train`` in this process as rank 0 of a
+                 world of one over NCCL (the launcher's variables set,
+                 after the grad check): DDP, FSDP2 (``parallel.fsdp``) and
+                 TP-1 (``parallel.tp=1``) on the flagship, 8 steps each:
+                 48 K1 / 24 K2 a step, losses against the single-process
+                 train phase's, strict load and one resumed step, steps/s
+                 and peak memory; then ``python -m torch.distributed.run
+                 --standalone --nproc_per_node=1 -m
+                 zigma_tpu_torch.cli.train`` at depth 2 (exit 0, its
+                 checkpoint) and the same stopped by SIGTERM to its worker
+                 after its first logged step (exit 0, the message, a
+                 checkpoint at or past that step);
+37. distributed sampling -- ``cli.sample`` at world size 1 over NCCL from
+                 the DDP checkpoint, Euler-50, 2 batches of 16: K1 2 x 49 x
+                 24 launches, the images equal to the single-process
+                 sampler's.
 
 Every count is set to 0 just before its path runs and read just after; the
 plain versions must run 0 times on every path.
@@ -177,11 +210,13 @@ The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the nvidia-smi line comes just before.
 """
 
+import gc
 import io
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -249,6 +284,14 @@ BWD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dbias", "dx0", "dz", "dD")
 # loss and per-parameter gradients of the fp32 depth-2 model, kernels vs
 # plain versions: the same summation-order differences through two blocks
 TOL_GRAD = 1e-4
+# sequence parallelism on the one card: the flagship scan over this many
+# virtual shards of L (256 tokens each)
+SEQ_SHARDS = 4
+# the distributed trainer at world size 1 against the single-process one,
+# on each loss, of max |loss|: the same kernels on the same inputs in the
+# same order, so the runs are expected bit-equal; the bound allows the
+# reduction order of a collective to differ
+TOL_DIST_LOSS = 1e-5
 
 FLAGSHIP = dict(batch=16, L=1024, D=1536, N=16)
 STEPS, DEPTH, N_BATCHES, BATCH = 50, 24, 2, 16
@@ -483,40 +526,46 @@ def least_time(n_bytes, flops, transc):
     return bound_ms, bound_by, how
 
 
-def k1_work(batch, L, D, N, item, carries=False):
-    """(bytes, fp32 flops, transcendentals) of K1's function, fused gate:
-    each input read once (u, delta, z; B, C; A, bias, D), each output
-    written once (y; x_last in fp32; the chunk starts with ``carries``).
-    Operations: the JAX kernel's cost estimate of fp32 FMA work, and on the
+def k1_work(batch, L, D, N, item, carries=False, fused=True, seeded=False):
+    """(bytes, fp32 flops, transcendentals) of K1's function, fused gate
+    unless ``fused`` is false: each input read once (u, delta, z; B, C; A,
+    bias, D; the seed x0 with ``seeded``), each output written once (y;
+    x_last in fp32; the chunk starts with ``carries``).  Operations: the
+    JAX kernel's cost estimate of fp32 FMA work, and on the
     special-function units one exp per state plus softplus's exp and log1p
-    and the gate's exp per channel."""
-    n_bytes = (4 * batch * L * D * item          # u, delta, z in; y out
+    and (fused) the gate's exp per channel."""
+    n_bytes = ((4 if fused else 3) * batch * L * D * item  # u, delta, z; y
                + 2 * batch * L * N * item        # B, C
-               + D * N * 4 + 2 * D * 4           # A, bias, D
-               + batch * N * D * 4)              # x_last
+               + D * N * 4 + (2 if fused else 1) * D * 4  # A, bias, D
+               + (2 if seeded else 1) * batch * N * D * 4)  # x0, x_last
     if carries:
         n_bytes += batch * -(-L // 128) * N * D * 4
-    return n_bytes, 9 * batch * L * D * N, batch * L * D * N + 3 * batch * L * D
+    return (n_bytes, 9 * batch * L * D * N,
+            batch * L * D * N + (3 if fused else 2) * batch * L * D)
 
 
-def k2_work(batch, L, D, N, item):
+def k2_work(batch, L, D, N, item, fused=True, g_last=False):
     """(bytes, fp32 flops, transcendentals) of K2's function as the training
     path calls it: each input read once (u, delta, z, gy; B, C; the chunk
-    starts; A, bias, D), each output written once (du, ddelta, dz; dB, dC;
-    dA, dbias, dD; dx0).  Operations: the JAX kernel's cost estimate (25 B L
-    D N), and one exp per state and step plus softplus's exp and log1p, its
-    sigmoid and the gate's sigmoid per channel and step."""
-    n_bytes = (7 * batch * L * D * item          # u, delta, z, gy in; 3 out
+    starts; A, bias, D; with ``g_last`` the final state's cotangent), each
+    output written once (du, ddelta, dz; dB, dC; dA, dbias, dD; dx0);
+    without the fused gate no z, dz, D or dD.  Operations: the JAX kernel's
+    cost estimate (25 B L D N), and one exp per state and step plus
+    softplus's exp and log1p, its sigmoid and (fused) the gate's sigmoid
+    per channel and step."""
+    n_bytes = ((7 if fused else 5) * batch * L * D * item  # in and out
                + 4 * batch * L * N * item        # B, C in; dB, dC out
                + batch * -(-L // 128) * N * D * 4  # chunk-start states
-               + 2 * (D * N * 4 + 2 * D * 4)     # A, bias, D in; grads out
-               + batch * N * D * 4)              # dx0
-    return n_bytes, 25 * batch * L * D * N, batch * L * D * N + 4 * batch * L * D
+               + 2 * (D * N * 4 + (2 if fused else 1) * D * 4)  # A, bias, D
+               + (2 if g_last else 1) * batch * N * D * 4)  # g_last, dx0
+    return (n_bytes, 25 * batch * L * D * N,
+            batch * L * D * N + (4 if fused else 3) * batch * L * D)
 
 
-def truth_f64(d, device="cuda"):
-    """The fused scan of ``scan_inputs`` in float64 on ``device``, step by
-    step, with no seed state: (y, chunk-start states, final state)."""
+def truth_f64(d, device="cuda", seeded=False, fused=True):
+    """The scan of ``scan_inputs`` in float64 on ``device``, step by step:
+    (y, chunk-start states, final state).  ``seeded``: from the state
+    ``d["x0"]`` (else zeros); ``fused``: y gated, ``(y + u D) silu(z)``."""
     import torch
     import torch.nn.functional as F
     f64 = {k: v.to(device, torch.float64) for k, v in d.items()}
@@ -525,7 +574,9 @@ def truth_f64(d, device="cuda"):
     dtu = dt * u
     At = f64["A"].t()  # (N, D)
     batch, L, D = u.shape
-    x = torch.zeros((batch, At.shape[0], D), dtype=torch.float64, device=device)
+    x = (f64["x0"] if seeded else
+         torch.zeros((batch, At.shape[0], D), dtype=torch.float64,
+                     device=device))
     carries, ys = [], []
     for t in range(L):
         if t % 128 == 0:
@@ -533,35 +584,44 @@ def truth_f64(d, device="cuda"):
         x = (torch.exp(dt[:, t, None, :] * At) * x
              + dtu[:, t, None, :] * B[:, t, :, None])
         ys.append(torch.einsum("bnd,bn->bd", x, C[:, t]))
-    y = (torch.stack(ys, dim=1) + u * f64["Dskip"]) * F.silu(f64["z"])
+    y = torch.stack(ys, dim=1)
+    if fused:
+        y = (y + u * f64["Dskip"]) * F.silu(f64["z"])
     return y, torch.stack(carries, dim=1), x
 
 
-def truth_bwd_f64(d, device="cuda"):
-    """The adjoint of ``truth_f64``'s fused scan in float64 on ``device``,
-    with ``d["gy"]`` the cotangent of the gated output and none of the final
-    state.  Its own loop: each 128-step chunk's states are recomputed from
-    the float64 chunk starts, then walked in reverse.  Returns (du, ddelta,
-    dA, dB, dC, dbias, dx0, dz, dD), the outputs of the kernel, in
-    float64; dbias sums the unrounded ddelta."""
+def truth_bwd_f64(d, device="cuda", seeded=False, fused=True):
+    """The adjoint of ``truth_f64``'s scan in float64 on ``device``, with
+    ``d["gy"]`` the cotangent of y (gated when ``fused``) and, where ``d``
+    has one, ``d["g_last"]`` that of the final state.  Its own loop: each
+    128-step chunk's states are recomputed from the float64 chunk starts,
+    then walked in reverse.  Returns (du, ddelta, dA, dB, dC, dbias, dx0)
+    and, fused, (dz, dD): the outputs of the kernel, in float64; dbias sums
+    the unrounded ddelta."""
     import torch
     f64 = {k: v.to(device, torch.float64) for k, v in d.items()}
-    u, B, C, z, g_out = f64["u"], f64["B"], f64["C"], f64["z"], f64["gy"]
+    u, B, C, g_out = f64["u"], f64["B"], f64["C"], f64["gy"]
     pre = f64["delta"] + f64["bias"]
     dt = torch.where(pre <= 20, torch.log1p(torch.exp(pre)), pre)
     sig = torch.sigmoid(pre)
     dtu = dt * u
-    At, Dsk = f64["A"].t(), f64["Dskip"]  # (N, D), (D,)
-    sig_z = torch.sigmoid(z)
-    gyr = g_out * z * sig_z  # cotangent of the raw scan output
-    _, starts, _ = truth_f64(d, device)
+    At = f64["A"].t()  # (N, D)
+    Dsk = f64["Dskip"] if fused else torch.zeros_like(f64["Dskip"])
+    if fused:
+        z = f64["z"]
+        sig_z = torch.sigmoid(z)
+        gyr = g_out * z * sig_z  # cotangent of the raw scan output
+    else:
+        gyr = g_out
+    _, starts, _ = truth_f64(d, device, seeded, fused)
     batch, L, D = u.shape
     N = At.shape[0]
     du, dd, y = (torch.zeros_like(u) for _ in range(3))
     dB = torch.zeros((batch, L, N), dtype=torch.float64, device=device)
     dC = torch.zeros_like(dB)
     dA = torch.zeros((N, D), dtype=torch.float64, device=device)
-    g_next = torch.zeros((batch, N, D), dtype=torch.float64, device=device)
+    g_next = (f64["g_last"].clone() if "g_last" in f64 else
+              torch.zeros((batch, N, D), dtype=torch.float64, device=device))
     for k in reversed(range(starts.shape[1])):
         t0, t1 = 128 * k, min(L, 128 * (k + 1))
         xs, decays = [starts[:, k]], []  # xs[j]: the state before step t0 + j
@@ -580,9 +640,11 @@ def truth_bwd_f64(d, device="cuda"):
             dC[:, t] = (gyr[:, t, None, :] * xs[j + 1]).sum(2)
             y[:, t] = (C[:, t, :, None] * xs[j + 1]).sum(1)
             g_next = decays[j] * g
+    grads = (du, dd, dA.t(), dB, dC, dd.sum((0, 1)), g_next)
+    if not fused:
+        return grads
     dz = g_out * (y + u * Dsk) * (sig_z * (1 + z * (1 - sig_z)))
-    return (du, dd, dA.t(), dB, dC, dd.sum((0, 1)), g_next, dz,
-            (gyr * u).sum((0, 1)))
+    return (*grads, dz, (gyr * u).sum((0, 1)))
 
 
 def truth_case(name, gen, batch, L, D, N, dtype, long_memory=False):
@@ -1067,7 +1129,7 @@ def train_phase(gen):
           f"peak device memory {peak_gb:.2f} GB, of which {held_gb:.2f} GB "
           f"held by earlier phases before the run", flush=True)
     return state, dict(steps_per_s=steps_s, images_per_s=steps_s * BATCH,
-                       peak_gb=peak_gb, k1=k1, k2=k2)
+                       peak_gb=peak_gb, k1=k1, k2=k2, losses=losses)
 
 
 def grad_check_phase(gen, what, x_shape, **model_kw):
@@ -1545,10 +1607,14 @@ def ssd_truth_phase(gen):
     and bf16, with D, z and the dt bias, against a float64 run of the
     sequential form; the same for the gradients of ``sum(y * w)``.  fp32:
     at most TOL_SSD_FP32_MULT x the plain fp32 sequential form's error;
-    bf16: at most TOL_SSD_BF16_ULPS bf16 unit roundoffs.  Then the chunked
-    form's forward and forward-plus-backward times in bf16."""
+    bf16: at most TOL_SSD_BF16_ULPS bf16 unit roundoffs.  The sequence-
+    parallel form over SEQ_SHARDS virtual shards (``ssd_scan_sharded``: the
+    two passes and the prefix states of ``ssd_seq_parallel``) is held to
+    the same gate and printed beside the chunked form.  Then each form's
+    forward and forward-plus-backward times in bf16."""
     import torch
     from zigma_tpu_torch.ops.ssd import ssd_scan, ssd_scan_ref
+    from zigma_tpu_torch.parallel import ssd_scan_sharded
     b, L, H, P, N = SSD_SHAPE.values()
     r = lambda *s: torch.randn(s, generator=gen, device="cuda")
     # the Mamba-2 init: A = -U[1, 16], dt bias the inverse softplus of a dt
@@ -1569,34 +1635,46 @@ def ssd_truth_phase(gen):
         (y.double() * w.double()).sum().backward()
         return y.detach(), {k: ins[k].grad for k in names}
 
+    sharded = lambda **kw: ssd_scan_sharded(**kw, n_shards=SEQ_SHARDS)
     worst = {}
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         ins = {k: v.to(dtype) if k in low else v for k, v in base.items()}
         y_c, g_c = run(ssd_scan, ins)
+        y_s, g_s = run(sharded, ins)
         y_p, g_p = run(ssd_scan_ref, {k: v.float() for k, v in ins.items()})
         y_t, g_t = run(ssd_scan_ref, {k: v.double() for k, v in ins.items()})
         torch.cuda.synchronize()
-        parts = []
-        for what, c, p, t in [("y", y_c, y_p, y_t)] + [
-                (f"d{k}", g_c[k], g_p[k], g_t[k]) for k in names]:
-            scale = t.abs().max().item()
-            e_c = (c.double() - t).abs().max().item() / scale
-            e_p = (p.double() - t).abs().max().item() / scale
-            if dtype == torch.float32:
-                ratio, limit = e_c / max(e_p, FP32_EPS), TOL_SSD_FP32_MULT
-                parts.append(f"{what} {e_c:.2e}/{e_p:.2e} ({ratio:.2f}x)")
-            else:
-                ratio, limit = e_c / BF16_EPS, TOL_SSD_BF16_ULPS
-                parts.append(f"{what} {e_c:.2e} ({ratio:.2f} ulps)")
-            worst[dname] = max(worst.get(dname, (0.0, "")), (ratio, what))
-            if not ratio <= limit:
-                fail(f"SSD {dname}: {what} error against the f64 truth "
-                     f"{e_c:.3e} of max |truth|: {ratio:.2f} > {limit}")
-        print(f"SSD chunked {dname} {tuple(SSD_SHAPE.values())} vs f64 "
-              f"sequential, of max |truth| (fp32: chunked/plain fp32 "
-              f"sequential; bf16: in bf16 unit roundoffs): "
-              + "; ".join(parts), flush=True)
-        del y_c, g_c, y_p, g_p, y_t, g_t
+        # the chunked form, then the sequence-parallel one over virtual
+        # shards, each held to the same gate
+        for form, key, y_f, g_f in (("chunked", dname, y_c, g_c),
+                                    (f"over {SEQ_SHARDS} shards",
+                                     f"{dname} sharded", y_s, g_s)):
+            parts = []
+            for what, c, p, t, u in [("y", y_f, y_p, y_t, y_c)] + [
+                    (f"d{k}", g_f[k], g_p[k], g_t[k], g_c[k])
+                    for k in names]:
+                scale = t.abs().max().item()
+                e_c = (c.double() - t).abs().max().item() / scale
+                e_p = (p.double() - t).abs().max().item() / scale
+                if dtype == torch.float32:
+                    ratio, limit = e_c / max(e_p, FP32_EPS), TOL_SSD_FP32_MULT
+                    parts.append(f"{what} {e_c:.2e}/{e_p:.2e} ({ratio:.2f}x)")
+                else:
+                    ratio, limit = e_c / BF16_EPS, TOL_SSD_BF16_ULPS
+                    parts.append(f"{what} {e_c:.2e} ({ratio:.2f} ulps)")
+                if c is not u:  # the sharded form against the chunked one
+                    parts[-1] += (f" |- chunked| "
+                                  f"{(c - u).abs().max().item():.1e}")
+                worst[key] = max(worst.get(key, (0.0, "")), (ratio, what))
+                if not ratio <= limit:
+                    fail(f"SSD {form} {dname}: {what} error against the f64 "
+                         f"truth {e_c:.3e} of max |truth|: {ratio:.2f} > "
+                         f"{limit}")
+            print(f"SSD {form} {dname} {tuple(SSD_SHAPE.values())} vs f64 "
+                  f"sequential, of max |truth| (fp32: against the plain fp32 "
+                  f"sequential's; bf16: in bf16 unit roundoffs): "
+                  + "; ".join(parts), flush=True)
+        del y_c, g_c, y_s, g_s, y_p, g_p, y_t, g_t
         torch.cuda.empty_cache()
     ins = {k: v.to(torch.bfloat16) if k in low else v for k, v in base.items()}
     with torch.no_grad():
@@ -1605,14 +1683,23 @@ def ssd_truth_phase(gen):
     wb = w.to(torch.bfloat16)
     fb_ms = cuda_ms(lambda: (ssd_scan(**grads_in, dt_softplus=True) * wb)
                     .sum().backward(), reps=3)
+    with torch.no_grad():
+        fwd_s = cuda_ms(lambda: sharded(**ins, dt_softplus=True), reps=5)
+    fb_s = cuda_ms(lambda: (sharded(**grads_in, dt_softplus=True) * wb)
+                   .sum().backward(), reps=3)
     print(f"SSD gate: fp32 at most {worst['fp32'][0]:.2f}x the plain fp32 "
           f"version's error ({worst['fp32'][1]}; limit {TOL_SSD_FP32_MULT}), "
           f"bf16 at most {worst['bf16'][0]:.2f} bf16 unit roundoffs "
-          f"({worst['bf16'][1]}; limit {TOL_SSD_BF16_ULPS}); chunked bf16 "
-          f"forward {fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms",
-          flush=True)
+          f"({worst['bf16'][1]}; limit {TOL_SSD_BF16_ULPS}); over "
+          f"{SEQ_SHARDS} shards fp32 {worst['fp32 sharded'][0]:.2f}x, bf16 "
+          f"{worst['bf16 sharded'][0]:.2f} ulps; chunked bf16 forward "
+          f"{fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms; over "
+          f"{SEQ_SHARDS} shards {fwd_s:.4f} ms and {fb_s:.4f} ms", flush=True)
     return dict(fwd_ms=fwd_ms, fwd_bwd_ms=fb_ms,
-                fp32_ratio=worst["fp32"][0], bf16_ulps=worst["bf16"][0])
+                fp32_ratio=worst["fp32"][0], bf16_ulps=worst["bf16"][0],
+                sharded_fp32_ratio=worst["fp32 sharded"][0],
+                sharded_bf16_ulps=worst["bf16 sharded"][0],
+                sharded_fwd_ms=fwd_s, sharded_fwd_bwd_ms=fb_s)
 
 
 def ssm2_sample_phase(gen, ckpt, tmp):
@@ -2830,6 +2917,531 @@ def train_step_fn(state, gen, x_shape, num_classes=-1, text=None):
     return lambda: train_step(state, loss_fn, batch, step_gen)["loss"].item()
 
 
+def _held(name, got, ref, tol, ulp=0.0):
+    """``got`` against ``ref`` per element (after ``ulp`` x |ref|), within
+    ``tol`` of max |ref|; returns the excess."""
+    over = excess(got, ref, ulp)
+    if not over <= tol:
+        fail(f"{name}: beyond {ulp:g} x |ref| by {over:.3e} of max |ref| > "
+             f"{tol}")
+    return over
+
+
+def _truth_ratio(name, got, plain, truth, is_bf16_dbias=False):
+    """``got``'s error against the float64 ``truth`` over the plain fp32
+    version's (at least FP32_EPS), after one bf16 ulp of |truth| per element
+    on bf16 outputs; a bf16 dbias is held to TOL_DBIAS_BF16 of the sum of
+    the rounded true ddelta, which ``truth`` is then."""
+    import torch
+    scale = truth.abs().max().item() or 1.0
+    if is_bf16_dbias:
+        e = (got.double() - truth).abs().max().item() / scale
+        if not e <= TOL_DBIAS_BF16:
+            fail(f"{name}: bf16 dbias {e:.3e} of max |truth| > "
+                 f"{TOL_DBIAS_BF16}")
+        return 0.0
+    ulp = BF16_ULP if got.dtype == torch.bfloat16 else 0.0
+    e_k = ((got.double() - truth).abs() - ulp * truth.abs()).max().item()
+    e_p = (plain.double() - truth).abs().max().item()
+    ratio = (e_k / scale) / max(e_p / scale, FP32_EPS)
+    if not ratio <= TOL_TRUTH_MULT:
+        fail(f"{name}: error against the f64 truth {e_k / scale:.3e} is "
+             f"{ratio:.2f}x the plain fp32 version's > {TOL_TRUTH_MULT}")
+    return ratio
+
+
+CONTRACT_OUT = ("y", "x_last", "du", "ddelta", "dA", "dB", "dC", "dbias",
+                "dx0")
+
+
+def contract_run(d, loss, backend):
+    """``core_full`` (``core_x0`` for a loss on y alone) of ``scan_inputs``
+    with its seed, under autograd: the loss on y and the final state, on y
+    alone or on the final state alone, with the cotangents ``d["gy"]`` and
+    ``d["g_last"]``.  Returns (y, x_last or None, the 7 gradients) and the
+    counts of the call."""
+    import torch
+    from zigma_tpu_torch.ops.selective_scan import core_full, core_x0
+    keys = ("u", "delta", "A", "B", "C", "bias", "x0")
+    t = {k: d[k].detach().clone().requires_grad_() for k in keys}
+    reset_counts()
+    if loss == "y alone":
+        y, last = core_x0(*(t[k] for k in keys), backend=backend), None
+    else:
+        y, last = core_full(*(t[k] for k in keys), backend=backend)
+    total = 0.0
+    if loss != "x_last alone":
+        total = (y.float() * d["gy"].float()).sum()
+    if loss != "y alone":
+        total = total + (last * d["g_last"]).sum()
+    grads = torch.autograd.grad(total, [t[k] for k in keys])
+    torch.cuda.synchronize()
+    return ([y.detach(), None if last is None else last.detach(), *grads],
+            read_counts())
+
+
+def scan_contract_phase(gen):
+    """The seeded scan and its final state under autograd (``core_x0`` /
+    ``core_full``) at the flagship shape, fp32 and bf16: K1 seeded with x0
+    and returning the final state, K2 seeded by the final state's cotangent
+    and returning dx0, exactly one launch each a call; every output against
+    the plain versions, and against the float64 truth (fp32: each loss;
+    bf16: the loss on both outputs) under TOL_TRUTH_MULT.  A loss on y
+    alone or on the final state alone leaves autograd's other cotangent
+    None."""
+    import torch
+    fs = FLAGSHIP
+    worst_truth, lines = 0.0, []
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        d = scan_inputs(gen, **fs, dtype=dtype)
+        d["gy"] = torch.randn(fs["batch"], fs["L"], fs["D"], generator=gen,
+                              device="cuda").to(dtype)
+        d["g_last"] = torch.randn(fs["batch"], fs["N"], fs["D"],
+                                  generator=gen, device="cuda")
+        for loss in ("both", "y alone", "x_last alone"):
+            name = f"contract {tag}, loss on {loss}"
+            got, c_k = contract_run(d, loss, "auto")
+            ref, c_p = contract_run(d, loss, "ref")
+            if c_k != (1, 1, 0, 0) or c_p != (0, 0, 1, 1):
+                fail(f"{name}: counts {c_k} (kernels) / {c_p} (plain), "
+                     f"expected one K1 and one K2 launch a call")
+            worst = 0.0
+            for what, g, r in zip(CONTRACT_OUT, got, ref):
+                if g is None:
+                    continue
+                ulp = BF16_ULP if g.dtype == torch.bfloat16 else 0.0
+                tol = (TOL_FP32 if what in ("y", "x_last") else
+                       TOL_DBIAS_BF16 if what == "dbias" and tag == "bf16"
+                       else TOL_BWD)
+                worst = max(worst, _held(f"{name}: {what}", g, r, tol, ulp)
+                            / tol)
+            msg = f"{name:38s} kernels vs plain: worst {worst:.2f} of limit"
+            if tag == "fp32" or loss == "both":
+                dl = dict(d)
+                if loss == "y alone":
+                    del dl["g_last"]
+                elif loss == "x_last alone":
+                    dl["gy"] = torch.zeros_like(d["gy"])
+                plain = ref if tag == "fp32" else contract_run(
+                    {k: v.float() for k, v in d.items()}, loss, "ref")[0]
+                y_t, _, last_t = truth_f64(dl, seeded=True, fused=False)
+                truth = [y_t, last_t, *truth_bwd_f64(dl, seeded=True,
+                                                     fused=False)]
+                if tag == "bf16":  # it sums the bf16-rounded ddelta
+                    truth[7] = truth[3].to(torch.bfloat16).double().sum(
+                        (0, 1))
+                ratios = {
+                    what: _truth_ratio(f"{name}: {what}", g, p, t,
+                                       what == "dbias" and tag == "bf16")
+                    for what, g, p, t in zip(CONTRACT_OUT, got, plain, truth)
+                    if g is not None}
+                top = max(ratios, key=ratios.get)
+                worst_truth = max(worst_truth, ratios[top])
+                msg += (f"; vs f64 at most {ratios[top]:.2f}x the plain fp32 "
+                        f"version's error ({top}; dx0 {ratios['dx0']:.2f}x"
+                        + (f", x_last {ratios['x_last']:.2f}x"
+                           if "x_last" in ratios else "") + ")")
+            print(msg, flush=True)
+        del d
+    print(f"scan contract: K1 with x0 and the final state, K2 with g_last "
+          f"and dx0, one launch each a call; against the f64 truth at most "
+          f"{worst_truth:.2f}x the plain fp32 version's error (limit "
+          f"{TOL_TRUTH_MULT})", flush=True)
+    return dict(truth_ratio=worst_truth, k1_per_call=1, k2_per_call=1)
+
+
+def seq_parallel_phase(gen):
+    """The flagship scan (fused gate; bf16, then fp32) over SEQ_SHARDS
+    virtual shards of L on the one card, through the sequence-parallel
+    passes: exactly 2 x SEQ_SHARDS K1 and K2 launches, outputs and every
+    gradient against the unsharded kernels and, like theirs, against the
+    float64 truth of the unsharded scan (the largest error of any element;
+    at most TOL_TRUTH_MULT x the unsharded kernels'); the sharded scan's
+    times beside the unsharded one's in bf16; K1 and K2 at a shard's (16,
+    256, 1536, 16) as the two passes call them, with their bounds and the
+    plain versions' times."""
+    import torch
+    from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+                                               selective_scan_fwd_cuda)
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan,
+                                                    selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+    from zigma_tpu_torch.parallel import selective_scan_sharded
+    fs, n = FLAGSHIP, SEQ_SHARDS
+    bf = torch.bfloat16
+    keys = ("u", "delta", "A", "B", "C", "Dskip", "z", "bias")
+    sharded = lambda *a: selective_scan_sharded(*a, delta_softplus=True,
+                                                n_shards=n)
+    whole = lambda *a: selective_scan(*a, delta_softplus=True)
+    worst, problems = {}, []
+    for tag, dtype in (("bf16", bf), ("fp32", torch.float32)):
+        # long memory (decays near 0.999): a shard's incoming state reaches
+        # far into the next shard; at short memory it would be forgotten
+        # within one and the prefix exchange would go untested
+        d = scan_inputs(gen, **fs, dtype=dtype, long_memory=True)
+        d["gy"] = torch.randn(fs["batch"], fs["L"], fs["D"], generator=gen,
+                              device="cuda").to(dtype)
+
+        def run(fn):
+            t = {k: d[k].detach().clone().requires_grad_() for k in keys}
+            reset_counts()
+            y = fn(*(t[k] for k in keys))
+            grads = torch.autograd.grad((y.float() * d["gy"].float()).sum(),
+                                        [t[k] for k in keys])
+            torch.cuda.synchronize()
+            return (dict(zip(("y", *keys), (y.detach(), *grads))),
+                    read_counts())
+
+        got, c_s = run(sharded)
+        ref, c_w = run(whole)
+        if c_s != (2 * n, 2 * n, 0, 0) or c_w != (1, 1, 0, 0):
+            fail(f"sequence parallel {tag}: counts {c_s} sharded / {c_w} "
+                 f"unsharded, expected {2 * n} K1 and {2 * n} K2 / one each")
+        y_t, _, _ = truth_f64(d)
+        truth = dict(zip(("y", "u", "delta", "A", "B", "C", "bias", "dx0",
+                          "z", "Dskip"), (y_t, *truth_bwd_f64(d))))
+        parts, worst[tag] = [], (0.0, "")
+        for what in ("y", *keys):
+            t = truth[what]
+            scale = t.abs().max().item()
+            # the largest error of any element, of max |truth|: a bf16
+            # output of the sharded scan that sums both passes' (du,
+            # ddelta, dB, dC) is rounded three times, so no per-element
+            # ulp is allowed either side; dbias, which sums rounded ddelta
+            # on both sides (and an fp32 term through the shard decays on
+            # the sharded one), against the exact sum
+            e_s, e_w = ((v.double() - t).abs().max().item() / scale
+                        for v in (got[what], ref[what]))
+            ratio = e_s / max(e_w, FP32_EPS)
+            worst[tag] = max(worst[tag], (ratio, what))
+            diff = (got[what].float() - ref[what].float()).abs().max().item()
+            parts.append(f"{what} {e_s:.2e}/{e_w:.2e} ({ratio:.2f}x; "
+                         f"|sharded - unsharded| {diff:.1e})")
+            if not ratio <= TOL_TRUTH_MULT:
+                problems.append(f"{tag} {what} {ratio:.2f}x")
+        print(f"flagship {tag} fused over {n} shards, vs the f64 truth of "
+              f"the unsharded scan, sharded/unsharded kernels' largest error "
+              f"of max |truth|: " + "; ".join(parts) + f"; worst "
+              f"{worst[tag][1]} {worst[tag][0]:.2f}x", flush=True)
+        del got, ref, truth, y_t
+    if problems:
+        fail(f"sequence parallel: error against the f64 truth above "
+             f"{TOL_TRUTH_MULT}x the unsharded kernels': {problems}")
+    d = scan_inputs(gen, **fs, dtype=bf, long_memory=True)
+    d["gy"] = torch.randn(fs["batch"], fs["L"], fs["D"], generator=gen,
+                          device="cuda").to(bf)
+    args = [d[k] for k in keys]
+    with torch.no_grad():
+        fwd_s = cuda_ms(lambda: sharded(*args), reps=10)
+        fwd_w = cuda_ms(lambda: whole(*args), reps=10)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    gy = d["gy"]
+    fb_s = cuda_ms(lambda: (sharded(*leaves) * gy).float().sum().backward(),
+                   reps=3)
+    fb_w = cuda_ms(lambda: (whole(*leaves) * gy).float().sum().backward(),
+                   reps=3)
+    print(f"sequence-parallel scan over {n} shards: forward {fwd_s:.4f} ms "
+          f"against {fwd_w:.4f} ms unsharded ({fwd_s / fwd_w:.2f}x); "
+          f"forward + backward {fb_s:.4f} ms against {fb_w:.4f} ms "
+          f"({fb_s / fb_w:.2f}x)", flush=True)
+
+    # K1 and K2 at a shard's shape, as the two passes call them
+    Ls = fs["L"] // n
+    sl = {k: d[k][:, :Ls].contiguous() for k in ("u", "delta", "B", "C", "z",
+                                                  "gy")}
+    A, bias, Dk = d["A"], d["bias"], d["Dskip"]
+    x_in, g_last = d["x0"], torch.randn(fs["batch"], fs["N"], fs["D"],
+                                        generator=gen, device="cuda")
+    zeros = torch.zeros_like(sl["gy"])
+    with torch.no_grad():
+        _, car1, _ = selective_scan_fwd_cuda(sl["u"], sl["delta"], A, sl["B"],
+                                             sl["C"], bias)
+        _, car2, _ = selective_scan_fwd_cuda(sl["u"], sl["delta"], A, sl["B"],
+                                             sl["C"], bias, Dk, sl["z"], x_in)
+        calls = {
+            "K1 pass 1 (final state)": (
+                lambda: selective_scan_fwd_cuda(
+                    sl["u"], sl["delta"], A, sl["B"], sl["C"], bias),
+                lambda: selective_scan_ref(
+                    sl["u"], sl["delta"], A, sl["B"], sl["C"], None, None,
+                    bias, True),
+                k1_work(fs["batch"], Ls, fs["D"], fs["N"], 2, carries=True,
+                        fused=False)),
+            "K1 pass 2 (seeded, fused)": (
+                lambda: selective_scan_fwd_cuda(
+                    sl["u"], sl["delta"], A, sl["B"], sl["C"], bias, Dk,
+                    sl["z"], x_in),
+                lambda: selective_scan_ref(
+                    sl["u"], sl["delta"], A, sl["B"], sl["C"], Dk, sl["z"],
+                    bias, True, x_in),
+                k1_work(fs["batch"], Ls, fs["D"], fs["N"], 2, carries=True,
+                        seeded=True)),
+            "K2 pass 1 (from g_last)": (
+                lambda: selective_scan_bwd_cuda(
+                    sl["u"], sl["delta"], bias, A, sl["B"], sl["C"], car1,
+                    zeros, g_last),
+                lambda: selective_scan_bwd_ref(
+                    sl["u"], sl["delta"], bias, A, sl["B"], sl["C"], car1,
+                    zeros, g_last),
+                k2_work(fs["batch"], Ls, fs["D"], fs["N"], 2, fused=False,
+                        g_last=True)),
+            "K2 pass 2 (fused, dx0)": (
+                lambda: selective_scan_bwd_cuda(
+                    sl["u"], sl["delta"], bias, A, sl["B"], sl["C"], car2,
+                    sl["gy"], None, Dk, sl["z"]),
+                lambda: selective_scan_bwd_ref(
+                    sl["u"], sl["delta"], bias, A, sl["B"], sl["C"], car2,
+                    sl["gy"], None, Dk, sl["z"]),
+                k2_work(fs["batch"], Ls, fs["D"], fs["N"], 2))}
+        rows = {}
+        for what, (kernel, plain, work) in calls.items():
+            ms = cuda_ms(kernel, reps=20)
+            plain_ms = cuda_ms(plain, reps=1, groups=3)
+            bound_ms, bound_by, _ = least_time(*work)
+            rows[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, launches=n)
+            print(f"{what} at {(fs['batch'], Ls, fs['D'], fs['N'])} bf16: "
+                  f"{ms:.4f} ms ({ms / bound_ms:.1f}x the bound {bound_ms:.4f} "
+                  f"ms by {bound_by}); plain {plain_ms:.3f} ms; {n} launches "
+                  f"a sharded call", flush=True)
+    return dict(k1=2 * n, k2=2 * n, truth_ratio={k: v[0] for k, v in
+                                                 worst.items()},
+                fwd_ms=fwd_s, fwd_ms_unsharded=fwd_w, fwd_bwd_ms=fb_s,
+                fwd_bwd_ms_unsharded=fb_w, shard_rows=rows)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launcher_env(port):
+    """The variables a launcher sets for rank 0 of a world of one."""
+    return dict(ZIGMA_DISTRIBUTED="1", RANK="0", WORLD_SIZE="1",
+                LOCAL_RANK="0", LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port))
+
+
+def dist_train_phase(tr, tmp):
+    """``cli.train`` in this process as rank 0 of a world of one over NCCL
+    (``ZIGMA_DISTRIBUTED`` with the launcher's variables), the flagship at
+    full width, batch 16, 8 steps: DDP, FSDP2 (``parallel.fsdp``) and the
+    tensor-parallel code path over a model group of one
+    (``parallel.tp=1``).  Each: exactly 48 K1 / 24 K2 launches a step, the
+    losses against the single-process train phase's (``tr``) for the same
+    seed, the checkpoint loaded strict into a fresh flagship model and
+    resumed for one more step, steps/s and peak memory; the process group
+    is gone after each.  Then a real launch through ``torch.distributed.run``
+    (depth 2, 2 steps) and one stopped by SIGTERM after its first logged
+    step."""
+    import torch
+    import torch.distributed as dist
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli import train as train_cli
+    base = ["model=zigzag8_b1_pe2", "data=synthetic",
+            f"data.batch_size={BATCH}", "log_every=1"]
+    out, saved = {}, {k: os.environ.get(k) for k in launcher_env(0)}
+    for mode, extra in (("DDP", []), ("FSDP2", ["parallel.fsdp=true"]),
+                        ("TP-1", ["parallel.tp=1"])):
+        run_dir = os.path.join(tmp, f"dist_{mode}")
+        os.environ.update(launcher_env(free_port()))
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            held_gb = torch.cuda.memory_allocated() / 1e9
+            reset_counts()
+            res = train_cli.main([*base, *extra,
+                                  f"data.train_steps={TRAIN_STEPS}",
+                                  f"results_dir={run_dir}"])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if dist.is_initialized():
+                fail(f"{mode}: the process group outlived cli.train")
+            del res["state"]
+            os.environ["MASTER_PORT"] = str(free_port())
+            again = train_cli.main([*base, *extra,
+                                    f"data.train_steps={TRAIN_STEPS + 1}",
+                                    f"results_dir={run_dir}"])
+            del again["state"]
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        gc.collect()  # FSDP2's hooks hold the modules in reference cycles
+        torch.cuda.empty_cache()
+        want = (48 * TRAIN_STEPS, 24 * TRAIN_STEPS, 0, 0)
+        if counts != want:
+            fail(f"{mode}: K1 / K2 / plain {counts}, expected {want}")
+        losses = [r["loss"] for r in res["records"]]
+        diffs = [abs(a - b) for a, b in zip(losses, tr["losses"])]
+        if len(losses) != TRAIN_STEPS or not max(diffs) <= TOL_DIST_LOSS * max(
+                map(abs, tr["losses"])):
+            fail(f"{mode}: losses {losses} against the single-process run's "
+                 f"{tr['losses']}")
+        if [r["step"] for r in again["records"]] != [TRAIN_STEPS + 1]:
+            fail(f"{mode}: the resumed run logged {again['records']}")
+        cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                     base[:1])
+        fresh = sample_cli.build_model(cfg, device="cuda")
+        fresh.load_state_dict(sample_cli.load_state_dict(res["checkpoint"]),
+                              strict=True)
+        del fresh
+        steady = [1.0 / r["steps_per_sec"] for r in res["records"][1:]]
+        steps_s = len(steady) / sum(steady)
+        out[mode] = dict(steps_per_s=steps_s, peak_gb=peak_gb,
+                         held_gb=held_gb, k1=counts[0], k2=counts[1],
+                         max_loss_diff=max(diffs), ckpt=res["checkpoint"])
+        print(f"{mode} at world size 1 over NCCL: losses "
+              f"{'bit-equal to' if max(diffs) == 0 else 'within ' + format(max(diffs), '.2e') + ' of'}"
+              f" the single-process run's; {steps_s:.4f} steps/s (single "
+              f"process {tr['steps_per_s']:.4f}); peak {peak_gb:.2f} GB "
+              f"({held_gb:.2f} GB held before it; single process "
+              f"{tr['peak_gb']:.2f} GB); K1 {counts[0]} / K2 {counts[1]}; "
+              f"checkpoint loaded strict, resumed at step {TRAIN_STEPS + 1}",
+              flush=True)
+
+    # two launches through torch.distributed.run side by side (each its own
+    # standalone rendezvous): one runs 2 steps to its end, the other is
+    # stopped by SIGTERM to its trainer after its first logged step
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["ZIGMA_DISTRIBUTED"] = "1"
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node=1", "-m", "zigma_tpu_torch.cli.train",
+              "model=zigzag8_b1_pe2", "data=synthetic",
+              f"data.batch_size={BATCH}", "model.params.depth=2",
+              "log_every=1"]
+    dirs = {k: os.path.join(tmp, k) for k in ("launched", "preempted")}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(
+        [*launch, f"data.train_steps={steps}", f"results_dir={dirs[k]}"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for k, steps in (("launched", 2), ("preempted", 100000))}
+    try:
+        lines, seen, first_s = [], 0, None
+        proc = procs["preempted"]
+        while time.perf_counter() - t0 < 300:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            m = re.search(r"step (\d+) .*steps/sec", line)
+            if m:
+                seen, first_s = int(m.group(1)), time.perf_counter() - t0
+                break
+        workers = child_pids(proc.pid)
+        if not seen or not workers:
+            fail("the launched trainer never logged a step:\n"
+                 + "".join(lines[-40:]))
+        for pid in workers:  # the trainer, as a scheduler signals a job
+            os.kill(pid, signal.SIGTERM)
+        outs = {k: p.communicate(timeout=300)[0] for k, p in procs.items()}
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs["preempted"] = "".join(lines) + outs["preempted"]
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "launches.log"), "w") as f:
+        for k, text in outs.items():
+            f.write(f"== {k} (exit {procs[k].returncode})\n{text}\n")
+
+    ckpts = sorted(glob_ckpts(dirs["launched"]))
+    if procs["launched"].returncode != 0 or not ckpts or \
+            not ckpts[-1].endswith("0000002.pt"):
+        fail(f"torch.distributed.run: exit {procs['launched'].returncode}, "
+             f"checkpoints {ckpts}:\n{outs['launched'][-3000:]}")
+    print(f"torch.distributed.run --standalone --nproc_per_node=1 -m "
+          f"zigma_tpu_torch.cli.train (depth 2, 2 steps): exit 0, "
+          f"{os.path.basename(ckpts[-1])} written", flush=True)
+    text = outs["preempted"]
+    m = re.search(r"signal (\d+) received: checkpointing and exiting at "
+                  r"step (\d+)", text)
+    ckpts = sorted(glob_ckpts(dirs["preempted"]))
+    if procs["preempted"].returncode != 0 or not m or not ckpts:
+        fail(f"SIGTERM: exit {procs['preempted'].returncode}, message "
+             f"{bool(m)}, checkpoints {ckpts}:\n{text[-3000:]}")
+    step = int(m.group(2))
+    if step < seen or not ckpts[-1].endswith(f"{step:07d}.pt"):
+        fail(f"SIGTERM: stopped at step {step} after step {seen} was seen, "
+             f"checkpoints {ckpts}")
+    print(f"SIGTERM to the launched trainer after step {seen} "
+          f"({first_s:.1f} s after the launch): exit 0, 'signal "
+          f"{m.group(1)} received: checkpointing and exiting at step "
+          f"{step}', {os.path.basename(ckpts[-1])} written; both launches "
+          f"done {wall:.1f} s after they started (their logs: "
+          f"chiprun_out/launches.log)", flush=True)
+    return out
+
+
+def glob_ckpts(run_dir):
+    import glob
+    return glob.glob(os.path.join(run_dir, "*", "checkpoints", "*.pt"))
+
+
+def child_pids(pid):
+    """Every process below ``pid`` (Linux /proc)."""
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        try:
+            with open(f"/proc/{p}/task/{p}/children") as f:
+                kids = [int(k) for k in f.read().split()]
+        except OSError:
+            kids = []
+        out += kids
+        todo += kids
+    return out
+
+
+def dist_sample_phase(ckpt, tmp):
+    """``cli.sample`` as rank 0 of a world of one over NCCL from the DDP
+    checkpoint, 50-step Euler, 2 batches of 16: K1 2 x 49 x 24 launches and
+    the same images as the single-process sampler with the same seed."""
+    import numpy as np
+    from PIL import Image
+    args = [f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "sample_mode=ODE",
+            "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
+            f"offline_sample_local_bs={BATCH}",
+            f"num_fid_samples={N_BATCHES * BATCH}"]
+    saved = {k: os.environ.get(k) for k in launcher_env(0)}
+    os.environ.update(launcher_env(free_port()))
+    try:
+        res, calls, k1, k2 = run_sample_cli(
+            "distributed sample CLI (world size 1, NCCL)",
+            [*args, f"sample_dir={os.path.join(tmp, 'dist_samples')}"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    one, _, _, _ = run_sample_cli(
+        "single-process sample CLI, same seed",
+        [*args, f"sample_dir={os.path.join(tmp, 'one_samples')}"])
+    want = N_BATCHES * (STEPS - 1) * DEPTH
+    if (k1, k2) != (want, 0):
+        fail(f"distributed sampling: K1 / K2 {k1} / {k2}, expected {want} / 0")
+    names = sorted(os.listdir(res["out_dir"]))
+    if names != sorted(os.listdir(one["out_dir"])) or \
+            len(names) != N_BATCHES * BATCH:
+        fail(f"distributed sampling wrote {names}")
+    for name in names:
+        a = np.asarray(Image.open(os.path.join(res["out_dir"], name)))
+        b = np.asarray(Image.open(os.path.join(one["out_dir"], name)))
+        if not np.array_equal(a, b):
+            fail(f"distributed sampling: {name} differs from the "
+                 f"single-process sampler's")
+    print(f"distributed sampling: {len(names)} images equal to the "
+          f"single-process sampler's; K1 {k1} launches", flush=True)
+    return dict(k1=k1, batch_seconds=res["batch_seconds"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2882,6 +3494,12 @@ def main():
     repairs_phase(gen)
     phase("kernels at the 1024^2 sampling shapes")
     k1_1024 = s1024_kernel_phase(gen)
+    phase("scan contract (core_x0 / core_full: K1 with x0 and the final "
+          "state, K2 with g_last and dx0)")
+    contract = scan_contract_phase(gen)
+    phase(f"sequence parallel ({SEQ_SHARDS} virtual shards of the flagship "
+          f"scan)")
+    sp = seq_parallel_phase(gen)
     with tempfile.TemporaryDirectory() as tmp:
         phase("sample (main path of the serving slice)")
         model, x, t, e2e = main_path_phase(gen, tmp)
@@ -2891,6 +3509,11 @@ def main():
         grad_check_phase(gen, "flagship-width depth 2", (2, 4, 32, 32),
                          depth=2, img_dim=32, patch_size=1,
                          scan_type="zigzagN8")
+        phase("distributed training (world size 1 over NCCL: DDP, FSDP2, "
+              "TP-1; torch.distributed.run; SIGTERM)")
+        dtr = dist_train_phase(tr, tmp)
+        phase("distributed sampling (world size 1 over NCCL)")
+        dsm = dist_sample_phase(dtr["DDP"]["ckpt"], tmp)
         phase("sample dopri5 (the default ode config)")
         dp = sample_dopri5_phase(e2e["ckpt"], tmp)
         phase("sample SDE (the default sde config)")
@@ -3036,13 +3659,22 @@ def main():
                                "train_ucf101_eval": vev["k1"],
                                "sample_metrics": sm["k1"],
                                "serve_request": sv["k1"],
-                               "lm_generate": lm["k1"]},
+                               "lm_generate": lm["k1"],
+                               "scan_contract_call": contract["k1_per_call"],
+                               "seq_parallel_4_shards": sp["k1"],
+                               "train_ddp": dtr["DDP"]["k1"],
+                               "train_fsdp2": dtr["FSDP2"]["k1"],
+                               "train_tp1": dtr["TP-1"]["k1"],
+                               "sample_distributed": dsm["k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
              video_shapes=kv["K1"], shapes_1024=k1_1024,
-             lm_prefill_shape=lm["k1_lm"]),
+             lm_prefill_shape=lm["k1_lm"],
+             seq_parallel_shard_shape={
+                 k: v for k, v in sp["shard_rows"].items()
+                 if k.startswith("K1")}),
         dict(name="selective_scan_bwd", route="cuda",
              source="zigma_tpu_torch/csrc/selective_scan_bwd.cu",
              replaces="zigma_tpu/ops/scan_pallas.py:418",
@@ -3056,11 +3688,19 @@ def main():
                                "likelihood_validation": dec["lik_k2"],
                                "train_churches_eval": ev["k2"],
                                "train_ucf101_eval": vev["k2"],
-                               "serve_request": 0, "lm_generate": 0},
+                               "serve_request": 0, "lm_generate": 0,
+                               "scan_contract_call": contract["k2_per_call"],
+                               "seq_parallel_4_shards": sp["k2"],
+                               "train_ddp": dtr["DDP"]["k2"],
+                               "train_fsdp2": dtr["FSDP2"]["k2"],
+                               "train_tp1": dtr["TP-1"]["k2"]},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
-             video_shapes=kv["K2"])]
+             video_shapes=kv["K2"],
+             seq_parallel_shard_shape={
+                 k: v for k, v in sp["shard_rows"].items()
+                 if k.startswith("K2")})]
     print(f"\nflagship sampling {e2e['images_per_s']:.4f} images/s, forward "
           f"{e2e['forward_ms']:.3f} ms; training {tr['steps_per_s']:.4f} "
           f"steps/s, {tr['images_per_s']:.3f} images/s, peak "
@@ -3102,7 +3742,15 @@ def main():
           f"LM prefill {lm['prefill_ms']:.3f} ms, decode {lm['step_ms']:.3f} "
           f"ms a token step, generate {lm['gen_tok_per_s']:.1f} tok/s, "
           f"{lm['kernels_per_step']} launches a decode step, idle "
-          f"{100 * lm['idle_share']:.1f}%")
+          f"{100 * lm['idle_share']:.1f}%; sequence-parallel scan over "
+          f"{SEQ_SHARDS} shards forward {sp['fwd_ms']:.4f} ms (unsharded "
+          f"{sp['fwd_ms_unsharded']:.4f}), forward + backward "
+          f"{sp['fwd_bwd_ms']:.4f} ms (unsharded "
+          f"{sp['fwd_bwd_ms_unsharded']:.4f}); world size 1 over NCCL: "
+          + "; ".join(f"{k} {v['steps_per_s']:.4f} steps/s, peak "
+                      f"{v['peak_gb']:.2f} GB" for k, v in dtr.items())
+          + f" (single process {tr['steps_per_s']:.4f} steps/s, peak "
+          f"{tr['peak_gb']:.2f} GB)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

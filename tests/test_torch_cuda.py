@@ -670,3 +670,90 @@ def test_server_worker_on_the_card(gen, tmp_path):
             assert (a == b).all()
     finally:
         w.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("loss", ["both", "y_only", "last_only"])
+def test_core_x0_and_core_full_kernels_match_plain(gen, dtype, loss):
+    """The seeded scan with its final state under autograd: K1 with x0
+    returning x_last, K2 from g_last returning dx0 (one launch each), against
+    the plain versions through the same Function; a loss on y alone or on
+    the final state alone leaves the other cotangent None."""
+    from zigma_tpu_torch.ops.selective_scan import core_full, core_x0
+    d = _inputs(gen, 2, 300, 96, 16, dtype)
+    gy = torch.randn(2, 300, 96, generator=gen, device="cuda")
+    g_last = torch.randn(2, 16, 96, generator=gen, device="cuda")
+    keys = ("u", "delta", "A", "B", "C", "bias", "x0")
+    res = {}
+    for backend in ("auto", "ref"):
+        t = {k: d[k].clone().requires_grad_() for k in keys}
+        counts = (scan_cuda.selective_scan_fwd_cuda.launches,
+                  scan_cuda.selective_scan_bwd_cuda.launches)
+        if loss == "y_only":
+            y, last = core_x0(*(t[k] for k in keys), backend=backend), None
+        else:
+            y, last = core_full(*(t[k] for k in keys), backend=backend)
+        total = 0.0
+        if loss != "last_only":
+            total = (y.float() * gy).sum()
+        if last is not None and loss != "y_only":
+            total = total + (last * g_last).sum()
+        total.backward()
+        launched = (scan_cuda.selective_scan_fwd_cuda.launches - counts[0],
+                    scan_cuda.selective_scan_bwd_cuda.launches - counts[1])
+        assert launched == ((1, 1) if backend == "auto" else (0, 0))
+        res[backend] = (y.detach(), None if last is None else last.detach(),
+                        {k: t[k].grad for k in keys})
+    (y, last, g), (yr, lr, gr) = res["auto"], res["ref"]
+    ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+    assert _rel(y, yr, ulp) <= TOL_FP32
+    if last is not None:
+        assert _rel(last, lr) <= TOL_FP32
+    for k in keys:
+        ulp = BF16_ULP if g[k].dtype == torch.bfloat16 else 0.0
+        tol = (TOL_DBIAS_BF16 if k == "bias" and dtype == torch.bfloat16
+               else TOL_BWD)
+        assert g[k].dtype == gr[k].dtype, k
+        assert _rel(g[k], gr[k], ulp) <= tol, k
+
+
+def test_virtual_shard_seq_parallel_kernels_match_plain(gen):
+    """The sequence-parallel scan over 4 virtual shards on the card (fp32,
+    fused gate, long memory): 8 K1 and 8 K2 launches, outputs and gradients
+    against the same passes through the plain versions, and the SSD's over
+    4 shards against the unsharded chunked SSD.  (In bf16 the gradients
+    that sum both passes' bf16 values round three times on either side, so
+    an element-wise bound against the plain versions would measure the
+    cancellation, not the kernels: ``chip_smoke.py`` holds bf16 against
+    the float64 truth.)"""
+    from zigma_tpu_torch.ops.ssd import ssd_scan
+    from zigma_tpu_torch.parallel import (selective_scan_sharded,
+                                          ssd_scan_sharded)
+    # long memory: a shard's incoming state reaches the next shard
+    d = _long_memory_inputs(gen, 2, 512, 96, 16, torch.float32)
+    gy = torch.randn(2, 512, 96, generator=gen, device="cuda")
+    keys = ("u", "delta", "A", "B", "C", "Dskip", "z", "bias")
+    res = {}
+    for backend in ("auto", "ref"):
+        t = {k: d[k].clone().requires_grad_() for k in keys}
+        before = (scan_cuda.selective_scan_fwd_cuda.launches,
+                  scan_cuda.selective_scan_bwd_cuda.launches)
+        y = selective_scan_sharded(*(t[k] for k in keys), delta_softplus=True,
+                                   n_shards=4, backend=backend)
+        (y.float() * gy).sum().backward()
+        launched = (scan_cuda.selective_scan_fwd_cuda.launches - before[0],
+                    scan_cuda.selective_scan_bwd_cuda.launches - before[1])
+        assert launched == ((8, 8) if backend == "auto" else (0, 0))
+        res[backend] = (y.detach(), {k: t[k].grad for k in keys})
+    (y, g), (yr, gr) = res["auto"], res["ref"]
+    assert _rel(y, yr) <= TOL_FP32
+    for k in keys:
+        assert _rel(g[k], gr[k]) <= TOL_BWD_LONG, k
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x, B, C = r(2, 256, 4, 16), r(2, 256, 1, 16), r(2, 256, 1, 16)
+    dt = 0.1 * r(2, 256, 4) - 4.0  # dt about 0.02: the state carries
+    A, Dh, dtb = -torch.exp(r(4)), r(4), 0.1 * r(4)
+    want = ssd_scan(x, dt, A, B, C, Dh, dt_bias=dtb, dt_softplus=True, chunk=64)
+    got = ssd_scan_sharded(x, dt, A, B, C, Dh, dt_bias=dtb, dt_softplus=True,
+                           n_shards=4, chunk=64)
+    assert _rel(got, want) <= TOL_FP32

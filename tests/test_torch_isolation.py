@@ -48,7 +48,8 @@ print(json.dumps({{"imported": mods, "loaded": sorted(sys.modules)}}))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("cli.sample", "cli.serve", "ops.scan_cuda", "models.lm",
                 "convert.mamba_lm", "evals.lm_harness",
-                "tools.benchmark_generation"):
+                "tools.benchmark_generation", "parallel.mesh",
+                "parallel.seq_parallel", "parallel.collectives"):
         assert f"zigma_tpu_torch.{mod}" in res["imported"]
     bad = [m for m in res["loaded"] if _forbidden(m)]
     assert bad == []

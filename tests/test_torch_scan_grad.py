@@ -8,7 +8,12 @@ Function and the token permutation's gradient.
 - ``selective_scan_bwd_ref`` against ``torch.autograd`` through
   ``selective_scan_ref`` (ragged L, seeded state, final-state cotangent).
 - ``selective_scan`` under autograd on the CPU (``SelectiveScanFn``) against
-  ``jax.grad`` of ``selective_scan_pallas`` (interpret).
+  ``jax.grad`` of ``selective_scan_pallas`` (interpret), with the final
+  state too (``return_last_state``).
+- ``core_x0`` / ``core_full`` (the seed and the final state under
+  autograd) against the JAX custom VJPs ``_core_x0`` / ``_core_full``
+  (interpret): outputs and every gradient, ``dx0`` included, with the loss
+  on both outputs, on y alone and on the final state alone.
 - ``permute_tokens``' gradient against JAX's and against torch indexing's
   scatter-add gradient.
 
@@ -24,13 +29,15 @@ import pytest
 import torch
 
 from zigma_tpu.models.mamba import permute_tokens as jax_permute_tokens
-from zigma_tpu.ops.scan_pallas import (scan_core_bwd_pallas,
+from zigma_tpu.ops.scan_pallas import (_core_full, _core_x0,
+                                       scan_core_bwd_pallas,
                                        scan_core_fwd_pallas,
                                        selective_scan_pallas)
 from zigma_tpu_torch.models.mamba import permute_tokens
 from zigma_tpu_torch.ops import scan_cuda
 from zigma_tpu_torch.ops.paths import build_layer_paths
-from zigma_tpu_torch.ops.selective_scan import (selective_scan,
+from zigma_tpu_torch.ops.selective_scan import (core_full, core_x0,
+                                                selective_scan,
                                                 selective_scan_bwd_ref,
                                                 selective_scan_ref)
 
@@ -148,7 +155,8 @@ def test_autograd_function_routes_and_types():
     """Under a gradient the scan goes through the Function (the plain
     forward with carries, then the plain backward); the gradients come in
     the JAX types: du/ddelta/dz/dB/dC in the input dtype, dA/dbias/dD
-    fp32.  The final state under autograd is a later slice."""
+    fp32; the final state under autograd takes the same one call each
+    way (its values: ``test_return_last_state_matches_jax_grad``)."""
     d = _inputs(3, L=64, D=16, N=4)
     bf = {k: _t(d[k]).to(torch.bfloat16).requires_grad_()
           for k in ("u", "delta", "B", "C", "z")}
@@ -169,10 +177,17 @@ def test_autograd_function_routes_and_types():
         assert v.grad.dtype == torch.bfloat16, k
     for k, v in f32.items():
         assert v.grad.dtype == torch.float32, k
-    with pytest.raises(NotImplementedError, match="later slice"):
-        selective_scan(bf["u"], bf["delta"], f32["A"], bf["B"], bf["C"],
-                       delta_bias=f32["bias"], delta_softplus=True,
-                       return_last_state=True)
+    # the final state under autograd: one forward and one backward, the
+    # state in fp32 and the reference's (batch, d, N) layout
+    calls = selective_scan_ref.calls, selective_scan_bwd_ref.calls
+    out, last = selective_scan(bf["u"], bf["delta"], f32["A"], bf["B"],
+                               bf["C"], delta_bias=f32["bias"],
+                               delta_softplus=True, return_last_state=True)
+    assert out.dtype == torch.bfloat16 and last.dtype == torch.float32
+    assert last.shape == (2, 16, 4)
+    (out.float().sum() + last.sum()).backward()
+    assert (selective_scan_ref.calls, selective_scan_bwd_ref.calls) == (
+        calls[0] + 1, calls[1] + 1)
 
 
 @pytest.mark.parametrize("scan_type", ["zigzagN8", "hilbertN8"])
@@ -195,3 +210,84 @@ def test_permute_tokens_gradient(scan_type):
         xs = _t(x, grad=True)
         (xs[:, torch.as_tensor(perm)] * _t(w)).sum().backward()
         np.testing.assert_array_equal(xt.grad.numpy(), xs.grad.numpy())
+
+
+# which outputs the loss reads: both, y alone, the final state alone
+LOSSES = {"both": (True, True), "y_only": (True, False),
+          "last_only": (False, True)}
+
+
+@pytest.mark.parametrize("loss", list(LOSSES))
+@pytest.mark.parametrize("seeded", [False, True])
+def test_core_x0_and_core_full_match_jax(loss, seeded):
+    """core_full (and core_x0 where the loss reads y alone) against the JAX
+    custom VJPs on the same numpy inputs: y, the final state and the
+    gradients of u, delta, A, B, C, the bias and the seed.  A loss on one
+    output alone leaves the other's cotangent None in autograd; the
+    Function turns that into no seed or a zero cotangent, exactly."""
+    use_y, use_last = LOSSES[loss]
+    d = _inputs(5, L=256, D=24, N=8)
+    keys = ["u", "delta", "A", "B", "C", "bias", "x0"]
+    zero = np.zeros_like(d["x0"])
+    x0 = d["x0"] if seeded else zero
+    wy = d["gy"] if use_y else np.zeros_like(d["gy"])
+    wl = d["g_last"] if use_last else zero
+
+    def jax_fn(u, delta, A, B, C, bias, x0_):
+        y, x_last = _core_full((True, True), u, delta, A, B, C, bias, x0_)
+        return y, x_last, jnp.sum(y * wy) + jnp.sum(x_last * wl)
+
+    y_ref, last_ref, _ = jax_fn(*(jnp.asarray(d[k]) for k in keys[:-1]),
+                                jnp.asarray(x0))
+    ref = jax.grad(lambda *a: jax_fn(*a)[2], argnums=tuple(range(7)))(
+        *(jnp.asarray(d[k]) for k in keys[:-1]), jnp.asarray(x0))
+    t = {k: _t(d[k], grad=True) for k in keys[:-1]}
+    t["x0"] = _t(x0, grad=True)
+    args = [t[k] for k in keys]
+    if loss == "y_only":
+        y = core_x0(*args)
+        loss_t = (y * _t(wy)).sum()
+        y_jx0 = _core_x0((True, True), *(jnp.asarray(d[k])
+                                         for k in keys[:-1]), jnp.asarray(x0))
+        _assert_close("y_x0", y.detach(), y_jx0)
+    else:
+        y, x_last = core_full(*args)
+        _assert_close("x_last", x_last.detach(), last_ref)
+        loss_t = (x_last * _t(wl)).sum()
+        if use_y:
+            loss_t = loss_t + (y * _t(wy)).sum()
+    _assert_close("y", y.detach(), y_ref)
+    loss_t.backward()
+    for k, r in zip(keys, ref):
+        _assert_close(k, t[k].grad, r)
+
+
+def test_return_last_state_matches_jax_grad():
+    """selective_scan(..., return_last_state=True) under autograd, the gate
+    fused, against jax.grad of selective_scan_pallas with the final state
+    (its _core_full from a zero seed): the output, the (batch, d, N) state
+    and every gradient of a loss on both."""
+    d = _inputs(6, L=256, D=16, N=8)
+    keys = ["u", "delta", "A", "B", "C", "Dskip", "z", "bias"]
+    g_last = np.transpose(d["g_last"], (0, 2, 1))
+
+    def jax_loss(*a):
+        a = dict(zip(keys, a))
+        out, last = selective_scan_pallas(
+            a["u"], a["delta"], a["A"], a["B"], a["C"], a["Dskip"], a["z"],
+            a["bias"], delta_softplus=True, return_last_state=True,
+            interpret=True)
+        return jnp.sum(out * d["gy"]) + jnp.sum(last * g_last), (out, last)
+
+    (_, (out_ref, last_ref)), ref = jax.value_and_grad(
+        jax_loss, argnums=tuple(range(len(keys))), has_aux=True)(
+        *(jnp.asarray(d[k]) for k in keys))
+    t = {k: _t(d[k], grad=True) for k in keys}
+    out, last = selective_scan(t["u"], t["delta"], t["A"], t["B"], t["C"],
+                               t["Dskip"], t["z"], t["bias"],
+                               delta_softplus=True, return_last_state=True)
+    _assert_close("out", out.detach(), out_ref)
+    _assert_close("last", last.detach(), last_ref)
+    ((out * _t(d["gy"])).sum() + (last * _t(g_last)).sum()).backward()
+    for k, r in zip(keys, ref):
+        _assert_close(k, t[k].grad, r)

@@ -341,9 +341,27 @@ def test_train_cli_refuses_what_this_slice_lacks(tmp_path):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="device=cpu"):
             train_cli.main([*TINY, f"results_dir={tmp_path}"])
-    for extra in (["parallel.fsdp=true"], ["parallel.tp=2"]):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            _train(tmp_path, *extra)
+    # parallel.fsdp and parallel.tp run, without a launcher on a group of
+    # this one process: the same losses as the plain run, the one-process
+    # checkpoint layout, and a tp the processes cannot hold raises
+    plain = _train(tmp_path / "plain", "data.train_steps=2", "log_every=1")
+    for extra in (["parallel.fsdp=true", "parallel.fsdp_min_size=0"],
+                  ["parallel.tp=1"]):
+        res = _train(tmp_path / extra[0], "data.train_steps=2", "log_every=1",
+                     *extra)
+        assert [r["loss"] for r in res["records"]] == [
+            r["loss"] for r in plain["records"]], extra
+        ck = torch.load(res["checkpoint"], weights_only=False)
+        model = ZigMa(**sample_cli.load_config(
+            sample_cli.DEFAULT_CONFIG_DIR, "default", TINY).model.params,
+            device="cpu")
+        model.load_state_dict(ck["model"], strict=True)
+        assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="model=2"):
+        _train(tmp_path, "parallel.tp=2")
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(NotImplementedError, match="next slice"):
+        _train(tmp_path, "parallel.pp=2")
     # the in-training eval is ported: the shard configs' own sample_fid_n
     # gets past the refusals
     for extra in (["data=churches256"], ["data.sample_fid_n=8"]):

@@ -32,6 +32,13 @@ raises before anything is loaded); each sampled batch is paired with the
 next validation batch (decoded the same way) until the split runs out, and
 the scores go to ``metrics.json`` beside the samples.
 
+Several processes (``ZIGMA_DISTRIBUTED=1`` under a launcher, or a process
+group the caller started): each process draws ``ceil(num_fid_samples /
+world)`` samples from a generator seeded ``global_seed + rank`` and writes
+the JAX package's rank-interleaved names (sample ``it * bs * world + rank *
+bs + i``, ``video_{it}_{rank}.npy``); ``metrics=`` gathers over the
+processes.
+
 Runs on CUDA unless ``device=cpu`` is given; asking for CUDA on a machine
 without it raises.
 """
@@ -44,6 +51,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zigma_tpu_torch.config import Config, load_config
 from zigma_tpu_torch.data.vae import (IdentityCodec, decode_maybe_video,
@@ -51,6 +59,7 @@ from zigma_tpu_torch.data.vae import (IdentityCodec, decode_maybe_video,
 from zigma_tpu_torch.device import resolve_device
 from zigma_tpu_torch.metrics.facade import to_uint8_images
 from zigma_tpu_torch.models import ZigMa
+from zigma_tpu_torch.parallel.mesh import init_process_group
 from zigma_tpu_torch.train.state import LATENT_SCALE
 from zigma_tpu_torch.transport import Sampler, create_transport
 from zigma_tpu_torch.utils.inference import cast_for_inference
@@ -155,6 +164,18 @@ def main(argv=None) -> dict:
     path = cfg.get("ckpt")
     if not path:
         raise ValueError("sampling requires ckpt=<path>")
+    owns_group = (init_process_group(device, launched=True)
+                  if os.environ.get("ZIGMA_DISTRIBUTED") else False)
+    try:
+        return _sample(cfg, device, path, metric_choices, video)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _sample(cfg, device, path, metric_choices, video) -> dict:
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
     logger = create_logger(None, "zigma_torch.sample")
     codec = None  # first: a missing VAE fails before any sampling
     if cfg.get("decode_latents"):
@@ -203,7 +224,8 @@ def main(argv=None) -> dict:
         cfg.train.get("train_eps"), cfg.train.get("sample_eps"))
     kind, sample_fn = build_sample_fn(cfg, Sampler(transport))
 
-    num = int(cfg.get("num_fid_samples", 64))
+    # this process's share of the quota (sample_acc.py:101-111)
+    num = -(-int(cfg.get("num_fid_samples", 64)) // world)
     group = cfg.sde if kind == "sde" else cfg.ode
     out_dir = os.path.join(
         cfg.get("sample_dir", "samples"),
@@ -212,7 +234,7 @@ def main(argv=None) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     latent_scale = LATENT_SCALE if cfg.get("is_latent", True) else None
     gen = torch.Generator(device=device).manual_seed(
-        int(cfg.get("global_seed", 0)))
+        int(cfg.get("global_seed", 0)) + rank)
     calls = [0]
 
     def model_fn(y):
@@ -330,15 +352,16 @@ def main(argv=None) -> dict:
                 metric.update_real(to_uint8_images(real_arr) if in_pixels
                                    else real_arr)
                 n_pairs += 1
+        first = it * bs * world + rank * bs  # sample_acc.py:388-392
         if arr.ndim == 5:
-            np.save(os.path.join(out_dir, f"video_{it}_0.npy"), arr)
+            np.save(os.path.join(out_dir, f"video_{it}_{rank}.npy"), arr)
             for i in range(arr.shape[0]):
-                write_video_grid(arr[i:i + 1, :, :3],
-                                 os.path.join(out_dir, f"{it * bs + i:06d}.gif"))
+                write_video_grid(arr[i:i + 1, :, :3], os.path.join(
+                    out_dir, f"{first + i:06d}.gif"))
         else:
             for i, img in enumerate(to_uint8_images(arr)):
                 Image.fromarray(np.transpose(img[:3], (1, 2, 0))).save(
-                    os.path.join(out_dir, f"{it * bs + i:06d}.png"))
+                    os.path.join(out_dir, f"{first + i:06d}.png"))
         made += arr.shape[0]
         it += 1
         logger.info("generated %d/%d (%.3f s, %d model calls)", made, num,
@@ -346,10 +369,11 @@ def main(argv=None) -> dict:
     if metric is not None and n_pairs > 0:
         import json
 
-        res["scores"] = metric.compute()
+        res["scores"] = metric.compute()  # gathered over the processes
         logger.info("metrics: %s", res["scores"])
-        with open(os.path.join(out_dir, "metrics.json"), "w") as f:
-            json.dump(res["scores"], f)
+        if rank == 0:
+            with open(os.path.join(out_dir, "metrics.json"), "w") as f:
+                json.dump(res["scores"], f)
     logger.info("samples written to %s", out_dir)
     return res
 

@@ -18,6 +18,13 @@ As in the JAX package:
 - the dt_proj bias enters the scan as ``delta_bias`` under softplus, not in
   the GEMM.
 
+Under tensor parallelism (``parallel.mesh.apply_tensor_parallel`` sets
+``tp_group`` and slices the parameters) each rank holds its d_inner / tp
+channels of both halves of ``in_proj`` and of every branch's conv, x_proj
+(row-parallel), dt_proj, A and D, and its input columns of ``out_proj``; the
+collectives are ``parallel.collectives``'s and the scan sees plain local
+tensors.
+
 On CUDA the scan is the hand-written kernels (K1 forward, K2 backward) with
 the ``(y + u*D)*silu(z)`` gate fused in.  The scan-path gathers go through
 ``permute_tokens``, whose backward is the gather by the functional inverse
@@ -28,8 +35,8 @@ Decode (the LM's, ``models/lm.py``): ``step`` takes one token and a
 state) and is direction-less, as in JAX: it uses the first branch.
 ``prefill`` runs a v1 prompt through the parallel scan with its final state
 (K1 on CUDA) and returns the output with the cache the steps continue
-from.  Both run without a gradient: the scan's final state under autograd
-is a later slice (``ops/selective_scan.py``).
+from; under a gradient the final state is differentiable (K2 seeded by its
+cotangent, ``ops/selective_scan.py::core_full``).
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
                                                causal_conv1d_update)
 from zigma_tpu_torch.ops.selective_scan import (selective_scan,
                                                 selective_state_update)
+from zigma_tpu_torch.parallel.collectives import (copy_to_group, reduce_both,
+                                                  row_parallel_linear)
 
 __all__ = ["Mamba", "MambaCache", "permute_tokens", "vjp_inverse",
            "fold_frames", "unfold_frames", "register_path_tables"]
@@ -236,6 +245,9 @@ class Mamba(nn.Module):
                 nn.Parameter(torch.empty(di, device=device))
                 for _ in range(n_par))
         self.out_proj = nn.Linear(di, d_model, bias=bias, device=device)
+        # tensor parallelism (parallel.mesh.apply_tensor_parallel): the
+        # group over which this mixer's d_inner channels are split
+        self.tp_group = None
         register_path_tables(
             self, perm, perm_rev, self.video, device,
             parallel_perm=(np.stack([p for p, _ in parallel_perms])
@@ -288,10 +300,30 @@ class Mamba(nn.Module):
             A_log.copy_(torch.log(A))
             D.fill_(1.0)
 
+    def _in(self, x):
+        """``in_proj`` -> (x, z), each d_inner wide (this rank's channels
+        of both under tensor parallelism, entered through
+        ``copy_to_group``)."""
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
+        return dense(self.in_proj, x, self.dtype).chunk(2, dim=-1)
+
+    def _out(self, y):
+        """``out_proj``, row-parallel under tensor parallelism."""
+        if self.tp_group is not None:
+            return row_parallel_linear(self.out_proj, y, self.dtype,
+                                       self.tp_group)
+        return dense(self.out_proj, y, self.dtype)
+
     def _features(self, branch, x_c):
-        """x_proj -> (delta without its bias, B, C) and A = -exp(A_log)."""
+        """x_proj -> (delta without its bias, B, C) and A = -exp(A_log).
+        Under tensor parallelism x_proj is row-parallel: the partial
+        products are summed both ways, since each rank's channels read
+        the whole of dt, B and C."""
         _, x_proj, dt_proj, A_log, _ = branch
         x_dbl = F.linear(x_c, x_proj.weight.to(self.dtype))
+        if self.tp_group is not None:
+            x_dbl = reduce_both(x_dbl, self.tp_group)
         dt, Bv, Cv = x_dbl.split([self.dt_rank, self.d_state, self.d_state], -1)
         delta = F.linear(dt, dt_proj.weight.to(self.dtype))  # bias: in the scan
         return delta, Bv, Cv, -torch.exp(A_log.float())
@@ -317,8 +349,7 @@ class Mamba(nn.Module):
             x = fold_frames(x, self.video_frames, self.st)
         if self.perm is not None:
             x = permute_tokens(x, self.perm, self.perm_bwd)
-        xz = dense(self.in_proj, x, self.dtype)
-        x_in, z = xz.chunk(2, dim=-1)
+        x_in, z = self._in(x)
         branches = self._branches()
         y = self._scan_branch(branches[0], x_in, z)
         if self.scan_type == "v2":
@@ -330,7 +361,7 @@ class Mamba(nn.Module):
                 yi = self._scan_branch(br, permute_tokens(x_in, p, pr),
                                        permute_tokens(z, p, pr))
                 y = y + permute_tokens(yi, pr, p)
-        out = dense(self.out_proj, y, self.dtype)
+        out = self._out(y)
         if self.perm_rev is not None:
             out = permute_tokens(out, self.perm_rev, self.perm_rev_bwd)
         if self.video:
@@ -342,7 +373,7 @@ class Mamba(nn.Module):
         ``MambaCache.init`` or ``prefill``.  Returns (out (batch, 1,
         d_model), new cache)."""
         conv_state, ssm_state = cache
-        x_in, z = dense(self.in_proj, x[:, 0], self.dtype).chunk(2, dim=-1)
+        x_in, z = self._in(x[:, 0])
         branch = self._branches()[0]
         conv, _, dt_proj, _, D = branch
         x_c, conv_state = causal_conv1d_update(
@@ -352,8 +383,7 @@ class Mamba(nn.Module):
         y, ssm_state = selective_state_update(
             ssm_state, x_c, delta, A, Bv, Cv, D.float(), z=z,
             dt_bias=dt_proj.bias.float(), dt_softplus=True)
-        return dense(self.out_proj, y, self.dtype)[:, None], (conv_state,
-                                                              ssm_state)
+        return self._out(y)[:, None], (conv_state, ssm_state)
 
     def prefill(self, x):
         """A v1 prompt through the parallel scan: (out (batch, L, d_model),
@@ -363,8 +393,8 @@ class Mamba(nn.Module):
                 f"prefill/decode requires scan_type='v1', got "
                 f"{self.scan_type!r}: bidirectional or permuted scans have "
                 f"no causal decode order")
-        x_in, z = dense(self.in_proj, x, self.dtype).chunk(2, dim=-1)
+        x_in, z = self._in(x)
         y, ssm_state = self._scan_branch(self._branches()[0], x_in, z,
                                          return_last_state=True)
         conv_state = conv_window(x_in, self.d_conv, MambaCache.CONV_DTYPE)
-        return dense(self.out_proj, y, self.dtype), (conv_state, ssm_state)
+        return self._out(y), (conv_state, ssm_state)

@@ -16,6 +16,11 @@ Counterpart of ``zigma_tpu/models/mamba2.py`` (``Mamba2`` and its
 - the gated RMSNorm ``RMSNorm(y * silu(z))`` with per-group fp32
   statistics, then ``out_proj``.
 
+Under tensor parallelism (``parallel.mesh.apply_tensor_parallel``) each
+rank holds its share of ``in_proj``'s outputs, gathered whole after the
+GEMM, and of ``out_proj``'s inputs; the conv, the SSD and the gated norm
+run whole on every rank, as the JAX rules replicate their parameters.
+
 The scan-path permutations and the video folds are ``Mamba``'s: tokens are
 permuted before ``in_proj`` and back after ``out_proj`` through
 ``permute_tokens``, whose backward takes ``vjp_inverse``.  ``parallelN``
@@ -56,6 +61,9 @@ from zigma_tpu_torch.models.mamba import (_VIDEO_SCANS, conv_window,
 from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
                                                causal_conv1d_update)
 from zigma_tpu_torch.ops.ssd import ssd_scan, ssd_state_update
+from zigma_tpu_torch.parallel.collectives import (copy_to_group, gather_last,
+                                                  row_parallel_linear,
+                                                  split_last)
 
 __all__ = ["Mamba2", "Mamba2Cache"]
 
@@ -143,6 +151,9 @@ class Mamba2(nn.Module):
             setattr(self, f"D{s}", nn.Parameter(torch.empty(nheads, device=device)))
         self.norm = _Weight(d_inner, device=device)
         self.out_proj = nn.Linear(d_inner, d_model, bias=bias, device=device)
+        # tensor parallelism (parallel.mesh.apply_tensor_parallel): the
+        # group over which in_proj's outputs and out_proj's inputs are split
+        self.tp_group = None
         register_path_tables(self, perm, perm_rev, self.video, device)
 
     @torch.no_grad()
@@ -200,6 +211,28 @@ class Mamba2(nn.Module):
             return out[0].reshape(B_, L, self.d_inner), out[1]
         return out.reshape(B_, L, self.d_inner)
 
+    def _in(self, x):
+        """``in_proj`` -> (z, xBC, dt).  Under tensor parallelism it is
+        column-parallel and its output is gathered whole on every rank:
+        the SSD's own parameters stay replicated, as the JAX rules leave
+        them."""
+        if self.tp_group is not None:
+            x = copy_to_group(x, self.tp_group)
+        zxbcdt = dense(self.in_proj, x, self.dtype)
+        if self.tp_group is not None:
+            zxbcdt = gather_last(zxbcdt, self.tp_group)
+        return zxbcdt.split([self.d_inner, self.conv_dim, self.nheads],
+                            dim=-1)
+
+    def _out(self, y):
+        """``out_proj``; row-parallel on this rank's slice of its input
+        under tensor parallelism."""
+        if self.tp_group is not None:
+            return row_parallel_linear(
+                self.out_proj, split_last(y, self.tp_group), self.dtype,
+                self.tp_group)
+        return dense(self.out_proj, y, self.dtype)
+
     def _gated_norm(self, y, z):
         """``RMSNorm(y * silu(z))`` with per-group fp32 statistics, in the
         compute dtype."""
@@ -215,12 +248,11 @@ class Mamba2(nn.Module):
             x = fold_frames(x, self.video_frames, self.st)
         if self.perm is not None:
             x = permute_tokens(x, self.perm, self.perm_bwd)
-        z, xbc, dt = dense(self.in_proj, x, self.dtype).split(
-            [self.d_inner, self.conv_dim, self.nheads], dim=-1)
+        z, xbc, dt = self._in(x)
         y = self._branch("", xbc, dt)
         if self.scan_type == "v2":
             y = y + self._branch("_b", xbc.flip(1), dt.flip(1)).flip(1)
-        out = dense(self.out_proj, self._gated_norm(y, z), self.dtype)
+        out = self._out(self._gated_norm(y, z))
         if self.perm_rev is not None:
             out = permute_tokens(out, self.perm_rev, self.perm_rev_bwd)
         if self.video:
@@ -232,8 +264,7 @@ class Mamba2(nn.Module):
         ``Mamba2Cache.init`` or ``prefill``.  Direction-less, like
         ``Mamba.step``.  Returns (out (batch, 1, d_model), new cache)."""
         conv_state, ssm_state = cache
-        z, xbc, dt = dense(self.in_proj, x[:, 0], self.dtype).split(
-            [self.d_inner, self.conv_dim, self.nheads], dim=-1)
+        z, xbc, dt = self._in(x[:, 0])
         xbc_c, conv_state = causal_conv1d_update(
             xbc, conv_state, self.conv1d.weight[:, 0, :], self.conv1d.bias,
             accum_dtype=self.conv_accum)
@@ -241,9 +272,7 @@ class Mamba2(nn.Module):
         y, ssm_state = ssd_state_update(
             ssm_state, x_, dt, -torch.exp(self.A_log.float()), Bv, Cv, self.D,
             dt_bias=self.dt_bias, dt_softplus=True)
-        out = dense(self.out_proj,
-                    self._gated_norm(y.reshape(-1, self.d_inner), z),
-                    self.dtype)
+        out = self._out(self._gated_norm(y.reshape(-1, self.d_inner), z))
         return out[:, None], (conv_state, ssm_state)
 
     def prefill(self, x):
@@ -253,9 +282,7 @@ class Mamba2(nn.Module):
             raise ValueError(
                 f"prefill/decode requires scan_type='v1', got "
                 f"{self.scan_type!r}")
-        z, xbc, dt = dense(self.in_proj, x, self.dtype).split(
-            [self.d_inner, self.conv_dim, self.nheads], dim=-1)
+        z, xbc, dt = self._in(x)
         y, ssm_state = self._branch("", xbc, dt, return_last_state=True)
         conv_state = conv_window(xbc, self.d_conv, Mamba2Cache.CONV_DTYPE)
-        return (dense(self.out_proj, self._gated_norm(y, z), self.dtype),
-                (conv_state, ssm_state))
+        return self._out(self._gated_norm(y, z)), (conv_state, ssm_state)

@@ -69,6 +69,8 @@ from zigma_tpu_torch.models.mamba import Mamba
 from zigma_tpu_torch.models.mamba2 import Mamba2
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm
 from zigma_tpu_torch.ops.paths import build_layer_paths, parallel_scan_perms
+from zigma_tpu_torch.parallel.collectives import (copy_to_group,
+                                                  row_parallel_linear)
 
 __all__ = ["ZigMa", "ZigMaBlock", "CrossAttention", "FinalLayer",
            "ZIGMA_PRESETS", "zigma_flops", "modulate", "drop_path",
@@ -115,6 +117,10 @@ class CrossAttention(nn.Module):
         self.to_k = nn.Linear(self.context_dim, inner, bias=False, device=device)
         self.to_v = nn.Linear(self.context_dim, inner, bias=False, device=device)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim, device=device))
+        # tensor parallelism (parallel.mesh.apply_tensor_parallel): the
+        # group over which the heads are split (``heads`` is then this
+        # rank's count)
+        self.tp_group = None
 
     def reset_parameters(self, generator=None):
         for lin in (self.to_q, self.to_k, self.to_v, self.to_out[0]):
@@ -130,6 +136,9 @@ class CrossAttention(nn.Module):
                 f"{context.shape[-1]}, expected context_dim={self.context_dim}")
         B, L, _ = x.shape
         S = context.shape[1]
+        tp = self.tp_group
+        if tp is not None:  # both enter column-parallel GEMMs
+            x, context = copy_to_group(x, tp), copy_to_group(context, tp)
         # (B, L, H, Dh) as JAX lays the heads out, then (B, H, L, Dh) for SDPA
         q = dense(self.to_q, x, self.dtype).reshape(B, L, self.heads, -1)
         k = dense(self.to_k, context, self.dtype).reshape(B, S, self.heads, -1)
@@ -138,6 +147,8 @@ class CrossAttention(nn.Module):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             scale=self.dim_head ** -0.5)
         o = o.transpose(1, 2).reshape(B, L, self.heads * self.dim_head)
+        if tp is not None:
+            return row_parallel_linear(self.to_out[0], o, self.dtype, tp)
         return dense(self.to_out[0], o, self.dtype)
 
 

@@ -15,13 +15,14 @@ Without a gradient it calls the forward alone (``selective_scan_fwd_cuda`` or
 ``SelectiveScanFn``, whose forward keeps the chunk-start states and whose
 backward is ``selective_scan_bwd_cuda`` (CUDA) or ``selective_scan_bwd_ref``
 (CPU).  This slice covers real A with variable (batch, L, N) B/C -- the
-ZigMa path; complex A, grouped or static B/C, and the last state or a seed
-state under autograd are later slices and raise.
+ZigMa path, with an optional seed state and the final state under autograd
+(``core_x0`` / ``core_full``, which sequence parallelism runs); complex A,
+grouped or static B/C are later slices and raise.
 
 ``selective_state_update`` is one decode step of the same recurrence in
 plain fp32 torch ops (the JAX package writes it in jnp, not Pallas).  An LM
-prefill is ``selective_scan(..., return_last_state=True)`` without a
-gradient, which on CUDA is one K1 launch.
+prefill is ``selective_scan(..., return_last_state=True)``, which on CUDA is
+one K1 launch (and one K2 launch under a gradient).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from zigma_tpu_torch.ops.scan_cuda import (CARRY_EVERY, selective_scan_bwd_cuda,
                                            selective_scan_fwd_cuda)
 
 __all__ = ["selective_scan", "selective_scan_ref", "selective_scan_bwd_ref",
-           "SelectiveScanFn", "kernel_params", "selective_state_update"]
+           "SelectiveScanFn", "core_x0", "core_full", "kernel_params",
+           "selective_state_update"]
 
 
 def _check_supported(A, B, C):
@@ -186,20 +188,29 @@ selective_scan_bwd_ref.calls = 0
 
 class SelectiveScanFn(torch.autograd.Function):
     """The scan with both directions: the counterpart of the JAX package's
-    ``_core`` (D and z None) and ``_fused`` (D and z given) custom VJPs.
+    custom VJPs ``_core`` (D and z None), ``_fused`` (D and z given),
+    ``_core_x0`` (a seed ``x0``) and ``_core_full`` (the final state as a
+    second output, ``return_last_state``).
 
     forward: the K1 kernel on CUDA, ``selective_scan_ref`` on the CPU (or
-    with ``use_ref``), keeping the chunk-start states; backward: the K2
+    with ``use_ref``), keeping the chunk-start states, whose first chunk is
+    the seed, so the backward's recompute starts from it; backward: the K2
     kernel on CUDA, ``selective_scan_bwd_ref`` on the CPU (or with
-    ``use_ref``).  The kernels take only dt = softplus(delta + bias), and
-    A, D and the bias through ``kernel_params``: a missing bias is zeros
-    and gets no gradient, and the gradients of A, D and the bias come back
-    in the caller's dtypes.
+    ``use_ref``), seeded by the final state's cotangent and giving x0's
+    (``dx0``).  Where only one of the two outputs reaches the loss autograd
+    hands None for the other: a missing ``g_last`` is no seed (zeros), a
+    missing output cotangent a zero tensor.  The kernels take only dt =
+    softplus(delta + bias), and A, D and the bias through
+    ``kernel_params``: a missing bias is zeros and gets no gradient, and the
+    gradients of A, D and the bias come back in the caller's dtypes.
+
+    Returns out (batch, L, d) in u's dtype, and with ``return_last_state``
+    also the final state (batch, N, d) fp32.
     """
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, delta_bias, D, z, delta_softplus,
-                use_ref):
+                use_ref, x0=None, return_last_state=False):
         ctx.dtypes = tuple(None if t is None else t.dtype
                            for t in (A, delta_bias, D))
         if not use_ref and u.device.type == "cuda":
@@ -209,33 +220,71 @@ class SelectiveScanFn(torch.autograd.Function):
                     "delta_bias); a scan without softplus lands in a later "
                     "slice of the port")
             A, D, bias = kernel_params(A, D, delta_bias)
-            out, carries, _ = selective_scan_fwd_cuda(
-                u, delta, A, B, C, bias, D, z, return_carries=True)
+            x0k = None if x0 is None else x0.to(torch.float32).contiguous()
+            out, carries, x_last = selective_scan_fwd_cuda(
+                u, delta, A, B, C, bias, D, z, x0=x0k, return_carries=True)
         else:
             bias = delta_bias
-            out, carries, _ = selective_scan_ref(u, delta, A, B, C, D, z,
-                                                 delta_bias, delta_softplus)
+            out, carries, x_last = selective_scan_ref(
+                u, delta, A, B, C, D, z, delta_bias, delta_softplus, x0=x0)
         ctx.save_for_backward(u, delta, A, B, C, bias, D, z, carries)
         ctx.delta_softplus, ctx.use_ref = delta_softplus, use_ref
-        return out
+        ctx.x0_dtype = None if x0 is None else x0.dtype
+        ctx.set_materialize_grads(False)
+        return (out, x_last) if return_last_state else out
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, gy, g_last=None):
         u, delta, A, B, C, delta_bias, D, z, carries = ctx.saved_tensors
+        if gy is None:  # only the final state reached the loss
+            gy = torch.zeros_like(u)
+        if g_last is not None:
+            g_last = g_last.to(torch.float32).contiguous()
         if not ctx.use_ref and u.device.type == "cuda":
             g = selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C,
-                                        carries, gy, None, D, z)
+                                        carries, gy, g_last, D, z)
         else:
             g = selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries,
-                                       gy, None, D, z, ctx.delta_softplus)
-        du, dd, dA, dB, dC, dbias = g[:6]
+                                       gy, g_last, D, z, ctx.delta_softplus)
+        du, dd, dA, dB, dC, dbias, dx0 = g[:7]
         dz, dD = g[7:] if z is not None else (None, None)
         # the parameters' gradients in the caller's dtypes (the kernels took
-        # fp32 copies); none for a bias the caller did not give
+        # fp32 copies); none for a bias or a seed the caller did not give
         A_t, bias_t, D_t = ctx.dtypes
         return (du, dd, dA.to(A_t), dB, dC,
                 None if bias_t is None else dbias.to(bias_t),
-                None if dD is None else dD.to(D_t), dz, None, None)
+                None if dD is None else dD.to(D_t), dz, None, None,
+                None if ctx.x0_dtype is None else dx0.to(ctx.x0_dtype), None)
+
+
+def core_x0(u, delta, A, B, C, delta_bias=None, x0=None,
+            delta_softplus: bool = True, backend: str = "auto"):
+    """The scan seeded with the state ``x0`` (batch, N, d) fp32: the
+    counterpart of ``zigma_tpu/ops/scan_pallas.py::_core_x0``.  Returns y
+    (batch, L, d) in u's dtype; under autograd x0 gets its gradient
+    (K2's ``dx0``).  One K1 launch forward and one K2 launch backward on
+    CUDA (``backend="ref"``: the plain versions)."""
+    _check_supported(A, B, C)
+    return SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, None, None,
+                                 delta_softplus, _use_ref(u, backend), x0)
+
+
+def core_full(u, delta, A, B, C, delta_bias=None, x0=None,
+              delta_softplus: bool = True, backend: str = "auto"):
+    """``core_x0`` that also returns the final state: the counterpart of
+    ``_core_full``.  Returns ``(y, x_last)``, x_last (batch, N, d) fp32,
+    both differentiable: the final state's cotangent seeds K2's reverse
+    walk (``g_last``)."""
+    _check_supported(A, B, C)
+    return SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, None, None,
+                                 delta_softplus, _use_ref(u, backend), x0,
+                                 True)
+
+
+def _use_ref(u, backend):
+    if backend not in ("auto", "ref"):
+        raise ValueError(f"unknown backend {backend!r} (auto | ref)")
+    return backend == "ref" or u.device.type == "cpu"
 
 
 def selective_scan(u, delta, A, B, C,
@@ -258,10 +307,8 @@ def selective_scan(u, delta, A, B, C,
     Returns out (batch, L, d) in u's dtype, and with ``return_last_state``
     also the final state (batch, d, N) fp32 (the JAX function's layout).
     """
-    if backend not in ("auto", "ref"):
-        raise ValueError(f"unknown backend {backend!r} (auto | ref)")
     _check_supported(A, B, C)
-    use_ref = backend == "ref" or u.device.type == "cpu"
+    use_ref = _use_ref(u, backend)
     if not use_ref and not delta_softplus:
         raise NotImplementedError(
             "the CUDA kernels always take dt = softplus(delta + delta_bias); "
@@ -270,17 +317,17 @@ def selective_scan(u, delta, A, B, C,
         t is not None and t.requires_grad
         for t in (u, delta, A, B, C, D, z, delta_bias))
     if needs_grad:
-        if return_last_state:
-            raise NotImplementedError(
-                "the final state under autograd (the JAX _core_full) serves "
-                "sequence parallelism and prefill, which land in a later "
-                "slice of the port")
-        if D is not None and z is not None:
-            return SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, D, z,
-                                         delta_softplus, use_ref)
-        y = SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, None, None,
-                                  delta_softplus, use_ref)
-        return _skip_and_gate(y, u, D, z)
+        # the final state from a zero seed, as selective_scan_pallas runs
+        # _core_full; the gate is fused where D and z come together
+        fused = D is not None and z is not None
+        res = SelectiveScanFn.apply(
+            u, delta, A, B, C, delta_bias, D if fused else None,
+            z if fused else None, delta_softplus, use_ref, None,
+            return_last_state)
+        y, x_last = res if return_last_state else (res, None)
+        if not fused:
+            y = _skip_and_gate(y, u, D, z)
+        return (y, x_last.transpose(1, 2)) if return_last_state else y
     if use_ref:
         out, _, x_last = selective_scan_ref(u, delta, A, B, C, D, z,
                                             delta_bias, delta_softplus)

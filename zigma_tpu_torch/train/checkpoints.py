@@ -7,7 +7,9 @@ a checkpoint this trainer wrote with no converter.  ``latest_checkpoint``
 picks the largest step number, as the JAX package does (the reference picks
 the newest file by mtime).  ``restore_checkpoint`` restores all of it:
 weights, EMA, the optimizer's moments and step counts, the step and
-best_fid.
+best_fid.  Across processes (``TrainState.layout``) the file is the same:
+full tensors under the one-process names, whatever DDP, FSDP2 or tensor
+parallelism hold on each rank.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import re
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint"]
 
@@ -24,15 +27,27 @@ _STEP_RE = re.compile(r"^(\d{7,})\.pt$")
 
 
 def save_checkpoint(ckpt_dir: str, state, args: Optional[dict] = None) -> str:
-    """Write ``{ckpt_dir}/{state.step:07d}.pt``; returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write ``{ckpt_dir}/{state.step:07d}.pt``; returns its path.
+
+    With a ``state.layout`` every rank must call: the full tensors are
+    gathered on every rank, rank 0 writes the file, and a barrier holds the
+    others until it is whole."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"{state.step:07d}.pt")
-    torch.save({"model": state.model.state_dict(),
-                "ema": state.ema.state_dict(),
-                "opt": state.opt.state_dict(),
-                "args": args,
-                "train_steps": state.step,
-                "best_fid": state.best_fid}, path)
+    layout = state.layout
+    if layout is None:
+        model, ema = state.model.state_dict(), state.ema.state_dict()
+        opt = state.opt.state_dict()
+    else:
+        model, ema = (layout.gather_state(state.model),
+                      layout.gather_state(state.ema))
+        opt = layout.gather_optimizer(state.opt, state.model)
+    if layout is None or dist.get_rank() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save({"model": model, "ema": ema, "opt": opt, "args": args,
+                    "train_steps": state.step,
+                    "best_fid": state.best_fid}, path)
+    if layout is not None:
+        dist.barrier()
     return path
 
 
@@ -53,9 +68,14 @@ def restore_checkpoint(path: str, state):
     run's args), so load only checkpoints you trust."""
     device = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=False)
-    state.model.load_state_dict(ckpt["model"])
-    state.ema.load_state_dict(ckpt["ema"])
-    state.opt.load_state_dict(ckpt["opt"])
+    if state.layout is None:
+        state.model.load_state_dict(ckpt["model"])
+        state.ema.load_state_dict(ckpt["ema"])
+        state.opt.load_state_dict(ckpt["opt"])
+    else:  # the full tensors on every rank, each keeping its own piece
+        state.layout.load_state(state.model, ckpt["model"])
+        state.layout.load_state(state.ema, ckpt["ema"])
+        state.layout.load_optimizer(state.opt, state.model, ckpt["opt"])
     state.step = int(ckpt["train_steps"])
     state.best_fid = float(ckpt["best_fid"])
     return state

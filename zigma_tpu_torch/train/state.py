@@ -10,7 +10,9 @@ Counterpart of ``zigma_tpu/train/state.py``:
   the JAX package fixed that and the port keeps the fix.
 - EMA 0.9999 of the float32 master weights into a frozen copy of the model.
 - One eager step: loss, backward, clip, AdamW, EMA.  ``grad_norm`` is the
-  norm before clipping, as ``optax.global_norm(grads)`` in the JAX step.
+  norm before clipping, as ``optax.global_norm(grads)`` in the JAX step,
+  and the global one across processes (DDP, FSDP2, tensor parallelism:
+  ``parallel/mesh.py``).
 
 The model keeps float32 parameters and casts them per GEMM to its compute
 dtype (``dense``), so there is no separate master copy to keep in sync.
@@ -41,30 +43,56 @@ def create_optimizer(params, lr: float = 1e-4, weight_decay: float = 0.0,
 
 @torch.no_grad()
 def update_ema(ema: nn.Module, model: nn.Module, decay: float = 0.9999):
-    """``e = e * decay + (1 - decay) * p`` for every parameter, in place."""
-    e = [p for p in ema.parameters()]
-    m = [p.detach() for p in model.parameters()]
-    torch._foreach_mul_(e, decay)
-    torch._foreach_add_(e, m, alpha=1.0 - decay)
+    """``e = e * decay + (1 - decay) * p`` for every parameter, in place,
+    on whatever the parameters are (local tensors, or FSDP2's shards, the
+    EMA's placed as the model's)."""
+    pairs = list(zip(ema.parameters(), model.parameters()))
+    for sharded in (False, True):  # foreach takes one tensor kind a call
+        e = [a for a, b in pairs if _is_dtensor(b) == sharded]
+        m = [b.detach() for a, b in pairs if _is_dtensor(b) == sharded]
+        if e:
+            torch._foreach_mul_(e, decay)
+            torch._foreach_add_(e, m, alpha=1.0 - decay)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
 
 
 @dataclass
 class TrainState:
     """The reference checkpoint's content {model, ema, opt, train_steps,
-    best_fid} as live objects."""
+    best_fid} as live objects, and, across processes, their placement
+    (``parallel.mesh.ParallelLayout``; None in one process)."""
 
     model: nn.Module
     ema: nn.Module
     opt: torch.optim.Optimizer
     step: int = 0
     best_fid: float = math.inf
+    layout: Optional[object] = None
 
     @classmethod
     def create(cls, model: nn.Module, lr: float = 1e-4,
-               weight_decay: float = 0.0) -> "TrainState":
-        ema = copy.deepcopy(model).requires_grad_(False)
-        return cls(model=model, ema=ema,
-                   opt=create_optimizer(model.parameters(), lr, weight_decay))
+               weight_decay: float = 0.0, ema: Optional[nn.Module] = None,
+               layout=None) -> "TrainState":
+        """``ema``: the EMA copy, already placed like ``model`` when a
+        ``layout`` is given (default: a frozen deep copy of ``model``)."""
+        if ema is None:
+            ema = copy.deepcopy(model)
+        params = (model.parameters() if layout is None
+                  else layout.param_groups(model))
+        return cls(model=model, ema=ema.requires_grad_(False),
+                   opt=create_optimizer(params, lr, weight_decay),
+                   layout=layout)
+
+    @property
+    def train_module(self) -> nn.Module:
+        """What the loss calls: the layout's (the DDP wrapper) or the
+        model."""
+        return self.model if self.layout is None else self.layout.module
 
 
 def make_diffusion_loss_fn(model: nn.Module, transport,
@@ -93,16 +121,29 @@ def train_step(state: TrainState, loss_fn: Callable, batch,
                **loss_kw) -> dict:
     """One step in place: loss, backward, clip (before the update), AdamW,
     EMA.  Returns ``{"loss", "grad_norm"}`` as 0-dim tensors on the model's
-    device (reading them synchronises; the caller decides when)."""
-    state.opt.zero_grad(set_to_none=True)
+    device (reading them synchronises; the caller decides when).
+
+    Across processes ``loss_fn`` calls ``state.train_module`` (DDP averages
+    the gradients over ``data`` in the backward, FSDP2 reduce-scatters
+    them); the parameters FSDP2 leaves whole are averaged here, and the
+    norm is the global one (``ParallelLayout.clip_grad_norm_``)."""
+    # under DDP the gradients stay views of its buckets (zeroed in place),
+    # so the backward writes into them without a copy a parameter
+    ddp = state.layout is not None and not state.layout.fsdp
+    state.opt.zero_grad(set_to_none=not ddp)
     loss = loss_fn(batch, generator, **loss_kw)
     loss.backward()
-    params = [p for p in state.model.parameters() if p.grad is not None]
-    if max_grad_norm and max_grad_norm > 0:
-        grad_norm = torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
+    if state.layout is not None:
+        state.layout.sync_replicated_grads()
+        grad_norm = state.layout.clip_grad_norm_(
+            list(state.model.named_parameters()), max_grad_norm)
     else:
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(p.grad) for p in params]))
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        if max_grad_norm and max_grad_norm > 0:
+            grad_norm = torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
+        else:
+            grad_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(p.grad) for p in params]))
     state.opt.step()
     update_ema(state.ema, state.model, ema_decay)
     state.step += 1
