@@ -202,7 +202,30 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 37. distributed sampling -- ``cli.sample`` at world size 1 over NCCL from
                  the DDP checkpoint, Euler-50, 2 batches of 16: K1 2 x 49 x
                  24 launches, the images equal to the single-process
-                 sampler's.
+                 sampler's;
+38. microbatch kernels -- K1 and K2 at the pipelined step's microbatch
+                 shape (4, 1024, 1536, 16), bf16 fused, as training calls
+                 them, against their plain versions; times beside the plain
+                 versions and the bounds (after the sequence-parallel phase);
+39. selective remat -- ``cli.train`` on the flagship under each
+                 ``model.params.remat_policy`` (``scan_out``, ``dots``,
+                 ``scan_out+dots``), 8 steps: K1 exactly 24, 48, 24 a step
+                 (the recompute takes the registered K1 operator's kept
+                 outputs), K2 24; losses against the train phase's full
+                 remat for the same seed; steps/s and peak memory beside
+                 it; then a depth-2 fp32 flagship-width model under
+                 ``scan_out`` against full remat's gradients;
+40. pipeline  -- ``cli.train`` with ``parallel.pp=1
+                 parallel.pp_microbatches=4`` as rank 0 of a world of one
+                 over NCCL, drop-path 0, 4 steps: K1 exactly 192 and K2 96 a
+                 step, the losses within 1% of a one-process run's with the
+                 same seed, the gathered checkpoint strict; a depth-2 fp32
+                 stage through ``zigma_pipelined_apply`` against the plain
+                 model (output and gradients);
+41. convert   -- the flagship's random weights as a reference-layout
+                 ``.pt`` through ``cli.convert`` on the card, then one
+                 ``cli.train ckpt=`` step from the step-0 checkpoint: 48 K1,
+                 24 K2, a strict load.
 
 Every count is set to 0 just before its path runs and read just after; the
 plain versions must run 0 times on every path.
@@ -294,6 +317,22 @@ SEQ_SHARDS = 4
 TOL_DIST_LOSS = 1e-5
 
 FLAGSHIP = dict(batch=16, L=1024, D=1536, N=16)
+# selective remat: K1 launches a flagship step under each policy (the
+# recompute skips K1 where the policy keeps the scan's outputs); K2 24
+REMAT_K1 = {"scan_out": 24, "dots": 48, "scan_out+dots": 24}
+# scan_out against full remat, fp32 depth 2, of max |full remat|: the kept
+# values are the ones the recompute would make, so bit-equal is expected
+TOL_REMAT_GRAD = 1e-5
+# the pipeline at world size 1: the flagship batch in 4 microbatches of 4,
+# the scan shape a microbatch gives K1 and K2
+PIPE_MICROBATCHES, PIPE_STEPS = 4, 4
+MICROBATCH = dict(batch=4, L=1024, D=1536, N=16)
+# its losses against one process's, relative: GEMMs at batch 4 against 16
+# and gradients summed over microbatches round otherwise (bf16), so the runs
+# drift apart by rounding, not by 1%
+TOL_PIPE_LOSS = 1e-2
+# the depth-2 fp32 stage's output against the plain model, of max |ref|
+TOL_PIPE_OUT = 1e-5
 STEPS, DEPTH, N_BATCHES, BATCH = 50, 24, 2, 16
 TRAIN_STEPS = 8
 DOPRI5_BATCH = LIK_BATCH = 4
@@ -395,6 +434,21 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 128
 # 2^-8.  The bf16 LMs are held to TOL_FORWARD, as the flagship forward: the
 # same run read 3.2e-3 to 2.0e-2 (a Mamba-2 state)
 TOL_LM_FP32 = 2e-5
+
+
+# the card machine counts every byte written to its disk, deletions
+# included, against a cap: the phases that write checkpoints of the
+# flagship by the dozen (distributed training, remat, the pipeline,
+# convert) write them to memory, each group in a directory of its own that
+# goes when the group ends
+RAM_DIR = "/dev/shm"
+
+
+def ram_dir():
+    """A temporary directory in RAM_DIR when the machine has it, else in
+    the default temporary directory."""
+    in_ram = os.path.isdir(RAM_DIR) and os.access(RAM_DIR, os.W_OK)
+    return tempfile.TemporaryDirectory(dir=RAM_DIR if in_ram else None)
 
 
 def fail(msg):
@@ -751,7 +805,7 @@ def kernel_phase(gen):
             d["Dskip"], d["z"])
     with torch.inference_mode():
         # as the sampling path calls it (no chunk starts), then as training
-        # does (SelectiveScanFn keeps them for K2)
+        # does (scan_with_grad keeps them for K2)
         ms = cuda_ms(lambda: selective_scan_fwd_cuda(
             *args, return_carries=False), reps=20)
         ms_carries = cuda_ms(lambda: selective_scan_fwd_cuda(
@@ -1129,7 +1183,8 @@ def train_phase(gen):
           f"peak device memory {peak_gb:.2f} GB, of which {held_gb:.2f} GB "
           f"held by earlier phases before the run", flush=True)
     return state, dict(steps_per_s=steps_s, images_per_s=steps_s * BATCH,
-                       peak_gb=peak_gb, k1=k1, k2=k2, losses=losses)
+                       peak_gb=peak_gb, held_gb=held_gb, k1=k1, k2=k2,
+                       losses=losses)
 
 
 def grad_check_phase(gen, what, x_shape, **model_kw):
@@ -1490,8 +1545,8 @@ def s1024_kernel_phase(gen):
 
 
 def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
-                    k1_eval=0):
-    """``cli.train`` with ``args`` at ``batch``, TRAIN_STEPS steps, the
+                    k1_eval=0, steps=TRAIN_STEPS):
+    """``cli.train`` with ``args`` at ``batch``, ``steps`` steps, the
     counts set to 0 just before and read just after: every loss finite,
     exactly ``k1_step`` / ``k2_step`` K1 / K2 launches a step (and
     ``k1_eval`` more for the run's evals) and the plain versions never; the
@@ -1508,7 +1563,7 @@ def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
     reset_counts()
     t0 = time.perf_counter()
     res = train_cli.main([*args, f"data.batch_size={batch}",
-                          f"data.train_steps={TRAIN_STEPS}", "log_every=1",
+                          f"data.train_steps={steps}", "log_every=1",
                           f"results_dir={tmp}"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1521,21 +1576,21 @@ def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
     del fresh
     model = res["state"].model
     losses = [r["loss"] for r in res["records"]]
-    want = (k1_step * TRAIN_STEPS + k1_eval, k2_step * TRAIN_STEPS, 0, 0)
+    want = (k1_step * steps + k1_eval, k2_step * steps, 0, 0)
     print(f"{what} train CLI: {len(losses)} steps in {wall:.2f} s (model "
           f"build included); {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
           f"params, dtype {model.dtype}, remat {model.use_checkpoint}; losses "
           f"{[round(v, 4) for v in losses]}; K1, K2, plain scan, plain "
           f"backward {counts} (expected {want}); EMA loaded with strict=True "
           f"into the sampler's model", flush=True)
-    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"{what} training losses {losses}")
     if counts != want:
         fail(f"{what} training: K1 / K2 / plain {counts}, expected {want}")
     steady = [1.0 / r["steps_per_sec"] for r in res["records"][1:]]
     steps_s = len(steady) / sum(steady)
     print(f"{what} training, batch {batch}: {steps_s:.4f} steps/s, "
-          f"{steps_s * batch:.3f} {unit}/s (steady steps 2-{TRAIN_STEPS}, "
+          f"{steps_s * batch:.3f} {unit}/s (steady steps 2-{steps}, "
           f"range {min(steady):.4f}-{max(steady):.4f} s; first step "
           f"{1.0 / res['records'][0]['steps_per_sec']:.3f} s); peak device "
           f"memory {peak_gb:.2f} GB, of which {held_gb:.2f} GB held by "
@@ -1543,7 +1598,7 @@ def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
     return res["state"], res["checkpoint"], dict(
         steps_per_s=steps_s, samples_per_s=steps_s * batch, peak_gb=peak_gb,
         held_gb=held_gb, k1=counts[0], k2=counts[1], evals=res["evals"],
-        suite=res["metric_suite"])
+        suite=res["metric_suite"], losses=losses)
 
 
 def perturbed_ckpt(gen, ckpt, path):
@@ -3442,6 +3497,259 @@ def dist_sample_phase(ckpt, tmp):
     return dict(k1=k1, batch_seconds=res["batch_seconds"])
 
 
+def microbatch_kernel_phase(gen):
+    """K1 and K2 at the pipelined step's microbatch shape (MICROBATCH: 4 of
+    the flagship's 16 sequences) in bf16 with the fused gate, as training
+    calls them (K1 keeping the chunk starts, K2 without a final-state
+    cotangent): each against its plain version on the same inputs, timed
+    beside the plain version and the bound."""
+    import torch
+    from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+                                               selective_scan_fwd_cuda)
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+    mb, bf = MICROBATCH, torch.bfloat16
+    d, errs = check_kernel_case("microbatch bf16 fused (pipeline)", gen,
+                                **mb, dtype=bf, fused=True, with_x0=False)
+    d2, carries, errs2 = check_bwd_case("microbatch bf16 fused (pipeline)",
+                                        gen, **mb, dtype=bf, fused=True)
+    fwd = (d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"],
+           d["Dskip"], d["z"])
+    bwd = (d2["u"], d2["delta"], d2["bias"], d2["A"], d2["B"], d2["C"],
+           carries, d2["gy"], None, d2["Dskip"], d2["z"])
+    calls = {
+        "K1": (lambda: selective_scan_fwd_cuda(*fwd, return_carries=True),
+               lambda: selective_scan_ref(
+                   d["u"], d["delta"], d["A"], d["B"], d["C"], d["Dskip"],
+                   d["z"], d["bias"], True),
+               k1_work(*mb.values(), 2, carries=True), errs["y"]),
+        "K2": (lambda: selective_scan_bwd_cuda(*bwd),
+               lambda: selective_scan_bwd_ref(*bwd),
+               k2_work(*mb.values(), 2), max(errs2.values()))}
+    rows = {}
+    with torch.no_grad():
+        for what, (kernel, plain, work, err) in calls.items():
+            ms = cuda_ms(kernel, reps=20)
+            plain_ms = cuda_ms(plain, reps=1, groups=3)
+            bound_ms, bound_by, how = least_time(*work)
+            rows[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, max_abs_err=err)
+            print(f"{what} at {tuple(mb.values())} bf16 fused (a pipelined "
+                  f"microbatch): {ms:.4f} ms ({ms / bound_ms:.1f}x the bound "
+                  f"{bound_ms:.4f} ms by {bound_by}: {how}); plain "
+                  f"{plain_ms:.3f} ms", flush=True)
+    return rows
+
+
+def remat_phase(gen, tr, tmp):
+    """``cli.train`` on the flagship (batch 16, bf16, drop-path 0.1) under
+    each selective-remat policy, TRAIN_STEPS steps: K1 exactly 24 a step
+    under ``scan_out`` and ``scan_out+dots`` (the recompute takes the
+    registered op's kept outputs) and 48 under ``dots``, K2 24, the plain
+    versions never; losses against the full-remat train phase's for the
+    same seed; steps/s and peak memory beside it; the profile of one step
+    (full remat's is in the profile phase)."""
+    out = {}
+    for policy, k1_step in REMAT_K1.items():
+        state, _, r = train_cli_phase(
+            f"remat {policy}", ["model=zigzag8_b1_pe2", "data=synthetic",
+                                f"model.params.remat_policy={policy}"],
+            BATCH, k1_step, DEPTH, os.path.join(tmp, f"remat_{policy}"))
+        diff = max(abs(a - b) for a, b in zip(r["losses"], tr["losses"]))
+        print(f"remat {policy}: losses "
+              + ("bit-equal to" if diff == 0 else f"within {diff:.3e} of")
+              + f" full remat's; {r['steps_per_s']:.4f} steps/s against "
+              f"{tr['steps_per_s']:.4f}; peak {r['peak_gb']:.2f} GB "
+              f"({r['peak_gb'] - r['held_gb']:.2f} GB its own) against "
+              f"{tr['peak_gb']:.2f} GB ({tr['peak_gb'] - tr['held_gb']:.2f} "
+              f"GB)", flush=True)
+        if not diff <= TOL_DIST_LOSS * max(map(abs, tr["losses"])):
+            fail(f"remat {policy}: losses {r['losses']} against full "
+                 f"remat's {tr['losses']}")
+        busy, wall, _ = profile_phase(
+            f"one flagship training step, remat_policy={policy} (batch "
+            f"{BATCH})", train_step_fn(state, gen, (BATCH, 4, 32, 32)))
+        del state
+        out[policy] = dict(r, max_loss_diff=diff, busy_ms=busy, wall_ms=wall)
+    return out
+
+
+def remat_grad_check_phase(gen):
+    """A flagship-width depth-2 fp32 model under ``remat_policy=scan_out``
+    against the same weights under full remat: loss and every gradient
+    through K1 / K2, within TOL_REMAT_GRAD of max |full remat|."""
+    import torch
+    from zigma_tpu_torch.models import ZigMa
+    from zigma_tpu_torch.train import LATENT_SCALE, make_diffusion_loss_fn
+    from zigma_tpu_torch.transport import create_transport
+
+    kw = dict(in_channels=4, embed_dim=768, depth=2, img_dim=32,
+              patch_size=1, scan_type="zigzagN8", use_pe=2,
+              use_checkpoint=True, device="cuda")
+    full = ZigMa(**kw, generator=gen)
+    with torch.no_grad():  # off the DiT zero-init, so every gate is open
+        for p in full.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    kept = ZigMa(**kw, remat_policy="scan_out")
+    kept.load_state_dict(full.state_dict())
+    batch = {"x": torch.randn(2, 4, 32, 32, generator=gen, device="cuda")}
+    res = []
+    for model in (full, kept):
+        loss_fn = make_diffusion_loss_fn(model, create_transport(),
+                                         latent_scale=LATENT_SCALE)
+        reset_counts()
+        loss = loss_fn(batch, torch.Generator(device="cuda").manual_seed(7))
+        loss.backward()
+        torch.cuda.synchronize()
+        res.append((loss.item(), read_counts(),
+                    {n: p.grad for n, p in model.named_parameters()}))
+    (lf, cf, gf), (lk, ck, gk) = res
+    worst = max((rel_err(gk[n], gf[n])[1], n) for n in gf)
+    print(f"remat scan_out vs full remat, flagship width depth 2 fp32: loss "
+          f"{lk:.6f} / {lf:.6f}; K1, K2, plain {ck} / {cf}; worst gradient "
+          f"{worst[0]:.3e} of max |full| ({worst[1]}); limit "
+          f"{TOL_REMAT_GRAD}", flush=True)
+    if ck != (2, 2, 0, 0) or cf != (4, 2, 0, 0):
+        fail(f"remat grad check: launches {ck} / {cf}")
+    if not (worst[0] <= TOL_REMAT_GRAD and lk == lf):
+        fail(f"remat scan_out gradients differ from full remat's: {worst}")
+    return worst[0]
+
+
+def pipeline_phase(gen, tmp):
+    """The pipeline at world size 1 over NCCL (``cli.train`` in this
+    process with the launcher's variables, ``parallel.pp=1``): the flagship
+    at depth 24, drop-path 0, batch 16 in PIPE_MICROBATCHES microbatches,
+    PIPE_STEPS steps: K1 exactly 192 and K2 96 a step (48 / 24 a
+    microbatch, with remat), the plain versions never, the losses within
+    TOL_PIPE_LOSS of a one-process run's with the same seed, the gathered
+    checkpoint strict.  Then ``zigma_pipelined_apply`` on a depth-2 fp32
+    flagship-width stage against the plain model: the output within
+    TOL_PIPE_OUT of max |ref|, the gradients within TOL_GRAD of theirs."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from zigma_tpu_torch.models import ZigMa
+    from zigma_tpu_torch.parallel import (make_mesh, split_stage,
+                                          zigma_pipelined_apply)
+    args = ["model=zigzag8_b1_pe2", "data=synthetic",
+            "model.params.drop_path_rate=0"]
+    _, _, one = train_cli_phase("one process, drop-path 0", args, BATCH,
+                                2 * DEPTH, DEPTH,
+                                os.path.join(tmp, "pipe_ref"),
+                                steps=PIPE_STEPS)
+    saved = {k: os.environ.get(k) for k in launcher_env(0)}
+    os.environ.update(launcher_env(free_port()))
+    try:
+        _, _, pp = train_cli_phase(
+            f"pipeline, 1 stage x {PIPE_MICROBATCHES} microbatches",
+            [*args, "parallel.pp=1",
+             f"parallel.pp_microbatches={PIPE_MICROBATCHES}"], BATCH,
+            2 * DEPTH * PIPE_MICROBATCHES, DEPTH * PIPE_MICROBATCHES,
+            os.path.join(tmp, "pipe"), steps=PIPE_STEPS)
+        if dist.is_initialized():
+            fail("pipeline: the process group outlived cli.train")
+        dist.init_process_group("nccl", init_method="env://",
+                                device_id=torch.device("cuda", 0))
+        group = make_mesh(pipe=1)["pipe"].get_group()
+        ref = ZigMa(in_channels=4, embed_dim=768, depth=2, img_dim=32,
+                    patch_size=1, scan_type="zigzagN8", use_pe=2,
+                    use_checkpoint=True, drop_path_rate=0.0, device="cuda",
+                    generator=gen)
+        with torch.no_grad():
+            for p in ref.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen,
+                                          device="cuda"))
+        stage = split_stage(copy.deepcopy(ref), 0, 1)
+        x = torch.randn(PIPE_MICROBATCHES, 4, 32, 32, generator=gen,
+                        device="cuda")
+        t = torch.rand(PIPE_MICROBATCHES, generator=gen, device="cuda")
+        w = torch.randn(x.shape, generator=gen, device="cuda")
+        got = zigma_pipelined_apply(stage, x, t, group=group,
+                                    n_microbatches=PIPE_MICROBATCHES)
+        want = ref(x, t)
+        (got * w).sum().backward()
+        (want * w).sum().backward()
+        torch.cuda.synchronize()
+        grads = dict(stage.named_parameters())
+        out_err = rel_err(got, want)[1]
+        worst = max((rel_err(grads[n].grad, p.grad)[1], n)
+                    for n, p in ref.named_parameters())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rel = [abs(a - b) / abs(b) for a, b in zip(pp["losses"], one["losses"])]
+    print(f"pipeline losses {[round(v, 5) for v in pp['losses']]} against one "
+          f"process {[round(v, 5) for v in one['losses']]}: worst "
+          f"{max(rel):.3e} relative (limit {TOL_PIPE_LOSS}); "
+          f"{pp['steps_per_s']:.4f} steps/s against {one['steps_per_s']:.4f} "
+          f"({100 * (pp['steps_per_s'] / one['steps_per_s'] - 1):+.1f}%), "
+          f"peak {pp['peak_gb']:.2f} GB against {one['peak_gb']:.2f} GB; "
+          f"depth-2 fp32 stage: output {out_err:.3e} of max |ref| (limit "
+          f"{TOL_PIPE_OUT}), worst gradient {worst[0]:.3e} ({worst[1]}; "
+          f"limit {TOL_GRAD})", flush=True)
+    if not max(rel) <= TOL_PIPE_LOSS:
+        fail(f"pipeline losses {pp['losses']} against {one['losses']}")
+    if not (out_err <= TOL_PIPE_OUT and worst[0] <= TOL_GRAD):
+        fail(f"pipelined stage against the plain model: output {out_err}, "
+             f"gradients {worst}")
+    return dict(pp, one=one, loss_rel=max(rel), out_err=out_err,
+                grad_err=worst[0])
+
+
+def convert_phase(gen, tmp):
+    """The flagship's random weights written as a reference-layout ``.pt``
+    (``module.`` keys, ``ema`` and ``model``) through ``cli.convert`` on the
+    card, then one ``cli.train ckpt=`` step from the step-0 checkpoint: 48
+    K1 / 24 K2, the plain versions never, the run's EMA strict."""
+    import torch
+    from zigma_tpu_torch.cli import convert as convert_cli
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli import train as train_cli
+    args = ["model=zigzag8_b1_pe2", "data=synthetic"]
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 args)
+    model = sample_cli.build_model(cfg, device="cuda", generator=gen)
+    sd = {f"module.{k}": v.cpu() for k, v in model.state_dict().items()}
+    pt = os.path.join(tmp, "reference_0000100.pt")
+    torch.save({"model": sd, "ema": sd, "opt": {}, "args": None,
+                "train_steps": 100, "best_fid": 9.5}, pt)
+    del model
+    t0 = time.perf_counter()
+    path = convert_cli.main(["--ckpt", pt, "--out",
+                             os.path.join(tmp, "converted"), *args])
+    conv_s = time.perf_counter() - t0
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    if ck["train_steps"] != 0 or ck["opt"]["state"] or not all(
+            torch.equal(ck["ema"][k[len("module."):]], v)
+            for k, v in sd.items()):
+        fail("convert: the step-0 checkpoint is not the reference weights")
+    reset_counts()
+    res = train_cli.main([*args, f"ckpt={path}", f"data.batch_size={BATCH}",
+                          "data.train_steps=1", "log_every=1",
+                          f"results_dir={os.path.join(tmp, 'finetune')}"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    fresh = sample_cli.build_model(cfg, device="cuda")
+    fresh.load_state_dict(sample_cli.load_state_dict(res["checkpoint"]),
+                          strict=True)
+    (rec,) = res["records"]
+    print(f"convert: {conv_s:.2f} s to {os.path.basename(path)}; one "
+          f"fine-tuning step from it: loss {rec['loss']:.4f}, K1, K2, plain "
+          f"{counts}; its EMA loads strict", flush=True)
+    if rec["step"] != 1 or not math.isfinite(rec["loss"]):
+        fail(f"convert: the fine-tuning step logged {rec}")
+    if counts != (2 * DEPTH, DEPTH, 0, 0):
+        fail(f"convert: K1 / K2 / plain {counts}")
+    return dict(k1=counts[0], k2=counts[1], seconds=conv_s)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3500,6 +3808,9 @@ def main():
     phase(f"sequence parallel ({SEQ_SHARDS} virtual shards of the flagship "
           f"scan)")
     sp = seq_parallel_phase(gen)
+    phase(f"kernels at the pipelined microbatch shape "
+          f"{tuple(MICROBATCH.values())}")
+    kmb = microbatch_kernel_phase(gen)
     with tempfile.TemporaryDirectory() as tmp:
         phase("sample (main path of the serving slice)")
         model, x, t, e2e = main_path_phase(gen, tmp)
@@ -3509,11 +3820,23 @@ def main():
         grad_check_phase(gen, "flagship-width depth 2", (2, 4, 32, 32),
                          depth=2, img_dim=32, patch_size=1,
                          scan_type="zigzagN8")
-        phase("distributed training (world size 1 over NCCL: DDP, FSDP2, "
-              "TP-1; torch.distributed.run; SIGTERM)")
-        dtr = dist_train_phase(tr, tmp)
-        phase("distributed sampling (world size 1 over NCCL)")
-        dsm = dist_sample_phase(dtr["DDP"]["ckpt"], tmp)
+        with ram_dir() as rtmp:
+            phase("distributed training (world size 1 over NCCL: DDP, "
+                  "FSDP2, TP-1; torch.distributed.run; SIGTERM)")
+            dtr = dist_train_phase(tr, rtmp)
+            phase("distributed sampling (world size 1 over NCCL)")
+            dsm = dist_sample_phase(dtr["DDP"]["ckpt"], rtmp)
+        with ram_dir() as rtmp:
+            phase("selective remat (scan_out, dots, scan_out+dots)")
+            rm = remat_phase(gen, tr, rtmp)
+            phase("selective remat grad check (scan_out, depth 2 fp32)")
+            remat_grad_check_phase(gen)
+            phase(f"pipeline (1 stage over NCCL, {PIPE_MICROBATCHES} "
+                  f"microbatches)")
+            pl = pipeline_phase(gen, rtmp)
+            phase("convert (a reference .pt through cli.convert, then "
+                  "cli.train ckpt=)")
+            cv = convert_phase(gen, rtmp)
         phase("sample dopri5 (the default ode config)")
         dp = sample_dopri5_phase(e2e["ckpt"], tmp)
         phase("sample SDE (the default sde config)")
@@ -3665,7 +3988,11 @@ def main():
                                "train_ddp": dtr["DDP"]["k1"],
                                "train_fsdp2": dtr["FSDP2"]["k1"],
                                "train_tp1": dtr["TP-1"]["k1"],
-                               "sample_distributed": dsm["k1"]},
+                               "sample_distributed": dsm["k1"],
+                               **{f"train_remat_{k}": v["k1"]
+                                  for k, v in rm.items()},
+                               "train_pipeline_1x4": pl["k1"],
+                               "train_from_converted": cv["k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
@@ -3674,7 +4001,8 @@ def main():
              lm_prefill_shape=lm["k1_lm"],
              seq_parallel_shard_shape={
                  k: v for k, v in sp["shard_rows"].items()
-                 if k.startswith("K1")}),
+                 if k.startswith("K1")},
+             pipeline_microbatch_shape=kmb["K1"]),
         dict(name="selective_scan_bwd", route="cuda",
              source="zigma_tpu_torch/csrc/selective_scan_bwd.cu",
              replaces="zigma_tpu/ops/scan_pallas.py:418",
@@ -3693,14 +4021,19 @@ def main():
                                "seq_parallel_4_shards": sp["k2"],
                                "train_ddp": dtr["DDP"]["k2"],
                                "train_fsdp2": dtr["FSDP2"]["k2"],
-                               "train_tp1": dtr["TP-1"]["k2"]},
+                               "train_tp1": dtr["TP-1"]["k2"],
+                               **{f"train_remat_{k}": v["k2"]
+                                  for k, v in rm.items()},
+                               "train_pipeline_1x4": pl["k2"],
+                               "train_from_converted": cv["k2"]},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
              video_shapes=kv["K2"],
              seq_parallel_shard_shape={
                  k: v for k, v in sp["shard_rows"].items()
-                 if k.startswith("K2")})]
+                 if k.startswith("K2")},
+             pipeline_microbatch_shape=kmb["K2"])]
     print(f"\nflagship sampling {e2e['images_per_s']:.4f} images/s, forward "
           f"{e2e['forward_ms']:.3f} ms; training {tr['steps_per_s']:.4f} "
           f"steps/s, {tr['images_per_s']:.3f} images/s, peak "
@@ -3750,7 +4083,14 @@ def main():
           + "; ".join(f"{k} {v['steps_per_s']:.4f} steps/s, peak "
                       f"{v['peak_gb']:.2f} GB" for k, v in dtr.items())
           + f" (single process {tr['steps_per_s']:.4f} steps/s, peak "
-          f"{tr['peak_gb']:.2f} GB)")
+          f"{tr['peak_gb']:.2f} GB); selective remat "
+          + "; ".join(f"{k} {v['steps_per_s']:.4f} steps/s, peak "
+                      f"{v['peak_gb']:.2f} GB" for k, v in rm.items())
+          + f" (full remat {tr['steps_per_s']:.4f}, {tr['peak_gb']:.2f} GB); "
+          f"pipeline 1 x {PIPE_MICROBATCHES} {pl['steps_per_s']:.4f} steps/s "
+          f"(one process, drop-path 0: {pl['one']['steps_per_s']:.4f}); K1 / "
+          f"K2 at the microbatch shape {kmb['K1']['ms']:.4f} / "
+          f"{kmb['K2']['ms']:.4f} ms")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

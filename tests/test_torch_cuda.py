@@ -22,7 +22,8 @@ import torch
 
 from zigma_tpu_torch.models import ZigMa
 from zigma_tpu_torch.ops import scan_cuda
-from zigma_tpu_torch.ops.selective_scan import (selective_scan,
+from zigma_tpu_torch.ops.selective_scan import (kernel_params,
+                                                selective_scan,
                                                 selective_scan_bwd_ref,
                                                 selective_scan_ref)
 
@@ -433,8 +434,8 @@ def test_batch_beyond_the_grid_limit_raises_before_launch(gen):
 def test_scan_without_bias_and_with_cast_A_D(gen, dtype):
     """delta_bias None, A a transposed view in bf16, D in bf16: K1 without a
     gradient, K1 and K2 under autograd, against the plain versions on the
-    same card (the fp32 values of the same A and D); no bias gradient, the
-    gradients of A and D in bf16."""
+    same card (the fp32 values of the same A and D); the missing bias is a
+    zero tensor that gets no gradient, the gradients of A and D in bf16."""
     d = _inputs(gen, 2, 300, 96, 16, dtype)
     A_bf = d["A"].t().contiguous().t().to(torch.bfloat16)  # (96, 16) view
     D_bf = d["Dskip"].to(torch.bfloat16)
@@ -455,7 +456,7 @@ def test_scan_without_bias_and_with_cast_A_D(gen, dtype):
         Dv = D_bf.detach().clone().requires_grad_()
         out = selective_scan(u, d["delta"], A, d["B"], d["C"], Dv, d["z"],
                              None, delta_softplus=True, backend=backend)
-        assert out.grad_fn.apply(torch.ones_like(out))[5] is None
+        assert not kernel_params(A, Dv, None)[2].requires_grad
         out.float().square().sum().backward()
         grads.append((out.detach(), u.grad, A.grad, Dv.grad))
     torch.cuda.synchronize()
@@ -757,3 +758,72 @@ def test_virtual_shard_seq_parallel_kernels_match_plain(gen):
     got = ssd_scan_sharded(x, dt, A, B, C, Dh, dt_bias=dtb, dt_softplus=True,
                            n_shards=4, chunk=64)
     assert _rel(got, want) <= TOL_FP32
+
+
+@pytest.mark.parametrize("policy,k1", [(None, 4), ("scan_out", 2),
+                                       ("dots", 4), ("scan_out+dots", 2)])
+def test_selective_remat_on_the_card(gen, policy, k1):
+    """A tiny fp32 ZigMa (depth 2, remat) under each ``remat_policy``: the
+    recompute launches no K1 where the policy keeps the registered op's
+    outputs; K2 once a block; gradients bit-equal to full remat's."""
+    model = ZigMa(in_channels=4, embed_dim=64, depth=2, img_dim=8,
+                  scan_type="zigzagN8", use_pe=2, use_checkpoint=True,
+                  device="cuda", generator=gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    x = torch.randn(2, 4, 8, 8, generator=gen, device="cuda")
+    t = torch.rand(2, generator=gen, device="cuda")
+    grads = []
+    for pol in (None, policy):
+        m = ZigMa(in_channels=4, embed_dim=64, depth=2, img_dim=8,
+                  scan_type="zigzagN8", use_pe=2, use_checkpoint=True,
+                  remat_policy=pol, device="cuda")
+        m.load_state_dict(model.state_dict())
+        before = (scan_cuda.selective_scan_fwd_cuda.launches,
+                  scan_cuda.selective_scan_bwd_cuda.launches)
+        (m(x, t) ** 2).sum().backward()
+        torch.cuda.synchronize()
+        launched = (scan_cuda.selective_scan_fwd_cuda.launches - before[0],
+                    scan_cuda.selective_scan_bwd_cuda.launches - before[1])
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    assert launched == (k1, 2)
+    for n, g in grads[0].items():
+        assert torch.equal(grads[1][n], g), n
+
+
+def test_pipelined_stage_on_the_card(gen):
+    """``zigma_pipelined_apply`` over a group of one with 4 microbatches on
+    the card: 4 K1 launches a block (8 with the remat recompute), the
+    output and gradients against the plain model's."""
+    import copy
+
+    import torch.distributed as dist
+    from zigma_tpu_torch.parallel import split_stage, zigma_pipelined_apply
+
+    ref = ZigMa(in_channels=4, embed_dim=64, depth=2, img_dim=8,
+                scan_type="zigzagN8", use_pe=2, use_checkpoint=True,
+                drop_path_rate=0.0, device="cuda", generator=gen)
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    stage = split_stage(copy.deepcopy(ref), 0, 1)
+    x = torch.randn(4, 4, 8, 8, generator=gen, device="cuda")
+    t = torch.rand(4, generator=gen, device="cuda")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        before = scan_cuda.selective_scan_fwd_cuda.launches
+        got = zigma_pipelined_apply(stage, x, t, group=dist.group.WORLD,
+                                    n_microbatches=4)
+        (got ** 2).sum().backward()
+        torch.cuda.synchronize()
+        assert scan_cuda.selective_scan_fwd_cuda.launches - before == 16
+    finally:
+        dist.destroy_process_group()
+    want = ref(x, t)
+    (want ** 2).sum().backward()
+    assert _rel(got, want) <= TOL_FP32
+    params = dict(stage.named_parameters())
+    for n, p in ref.named_parameters():
+        assert _rel(params[n].grad, p.grad) <= TOL_FP32, n

@@ -125,17 +125,22 @@ def test_bf16_inference_cast_matches_jax():
 
 
 def test_later_slice_options_raise():
-    """Selective remat still raises; text, use_pe 3 and Mamba-2 build now
-    (held against JAX in test_torch_text.py and test_torch_ssd.py), and so
-    do video models and the training label drop (test_torch_video.py)."""
+    """Selective remat builds now (held against JAX in test_torch_remat.py)
+    and an unknown policy raises; text, use_pe 3 and Mamba-2 build (held
+    against JAX in test_torch_text.py and test_torch_ssd.py), and so do
+    video models and the training label drop (test_torch_video.py)."""
     for kw in (dict(has_text=True, d_context=16), dict(use_pe=3),
                dict(ssm_cfg=dict(ssm_version=2, d_state=16, headdim=16))):
         model = ZigMa(**{**BASE, **kw}, depth=1, device="cpu")
         x = torch.zeros(2, 4, 8, 8)
         y = torch.zeros(2, 5, 16) if kw.get("has_text") else None
         assert model(x, torch.full((2,), 0.5), y).shape == (2, 4, 8, 8)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ZigMa(**BASE, depth=1, remat_policy="scan_out", device="cpu")
+    for policy in ("scan_out", "dots", "scan_out+dots"):
+        model = ZigMa(**BASE, depth=1, remat_policy=policy,
+                      use_checkpoint=True, device="cpu")
+        assert model.remat_policy == policy
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        ZigMa(**BASE, depth=1, remat_policy="scan", device="cpu")
     video = ZigMa(**BASE, depth=1, video_frames=4, device="cpu")
     assert video.pos_embed.shape == (1, 4 * 64, 32)
     vx = torch.zeros(2, 4, 4, 8, 8)

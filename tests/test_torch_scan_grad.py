@@ -7,7 +7,7 @@ Function and the token permutation's gradient.
   the same numpy inputs and the same chunk-start states.
 - ``selective_scan_bwd_ref`` against ``torch.autograd`` through
   ``selective_scan_ref`` (ragged L, seeded state, final-state cotangent).
-- ``selective_scan`` under autograd on the CPU (``SelectiveScanFn``) against
+- ``selective_scan`` under autograd on the CPU (``scan_with_grad``) against
   ``jax.grad`` of ``selective_scan_pallas`` (interpret), with the final
   state too (``return_last_state``).
 - ``core_x0`` / ``core_full`` (the seed and the final state under
@@ -121,7 +121,7 @@ VARIANTS = {"fused_gate": (True, True, True),
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_autograd_function_matches_jax_grad(variant):
-    """selective_scan under autograd on the CPU (SelectiveScanFn over the
+    """selective_scan under autograd on the CPU (scan_with_grad over the
     plain versions) vs jax.grad of selective_scan_pallas in interpret mode:
     the gate fused into the Function (against JAX's fused kernel and its
     jnp epilogue), the skip term alone around it, and the bare core."""

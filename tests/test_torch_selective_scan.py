@@ -18,8 +18,8 @@ import torch
 from zigma_tpu.ops.scan_pallas import scan_core_fwd_pallas, selective_scan_pallas
 from zigma_tpu.ops.selective_scan import selective_scan_ref as jax_scan_ref
 from zigma_tpu_torch.ops import scan_cuda
-from zigma_tpu_torch.ops.selective_scan import (SelectiveScanFn,
-                                                kernel_params, selective_scan,
+from zigma_tpu_torch.ops.selective_scan import (kernel_params, scan_with_grad,
+                                                selective_scan,
                                                 selective_scan_ref)
 
 TOL = 1e-4
@@ -151,7 +151,7 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_gradients():
     with pytest.raises(ValueError, match="CUDA tensors"):
         scan_cuda.selective_scan_fwd_cuda(*args)
     # the raw forward records no gradient: autograd goes through
-    # SelectiveScanFn (selective_scan), whose backward is K2
+    # scan_with_grad (selective_scan), whose backward is K2
     with pytest.raises(NotImplementedError, match="does not record a gradient"):
         scan_cuda.selective_scan_fwd_cuda(args[0].clone().requires_grad_(),
                                           *args[1:])
@@ -184,9 +184,10 @@ def test_kernel_params_normalise_A_D_and_a_missing_bias():
 
 
 def test_missing_bias_has_no_gradient_and_cast_params_keep_their_dtype():
-    """SelectiveScanFn without delta_bias returns no bias gradient; A given
-    in bf16 as a transposed view, and D in bf16, get their gradients in
-    bf16; the values equal the fp32 run's rounded to bf16."""
+    """scan_with_grad without delta_bias gives the op a zero bias that gets
+    no gradient; A given in bf16 as a transposed view, and D in bf16, get
+    their gradients in bf16; the values equal the fp32 run's rounded to
+    bf16."""
     d = _inputs(9, L=40, D=8, N=4)
     A_view = _t(np.ascontiguousarray(d["A"].T)).t().to(torch.bfloat16)
     A_view.requires_grad_()
@@ -196,10 +197,9 @@ def test_missing_bias_has_no_gradient_and_cast_params_keep_their_dtype():
     u = _t(d["u"]).requires_grad_()
     outs = []
     for A, Dv in ((A_view, Dk), (A32, D32)):
-        out = SelectiveScanFn.apply(u, _t(d["delta"]), A, _t(d["B"]),
-                                    _t(d["C"]), None, Dv, _t(d["z"]), True,
-                                    False)
-        assert out.grad_fn.apply(torch.ones_like(out))[5] is None
+        out = scan_with_grad(u, _t(d["delta"]), A, _t(d["B"]), _t(d["C"]),
+                             None, Dv, _t(d["z"]), True, False)
+        assert not kernel_params(A, Dv, None)[2].requires_grad
         out.sum().backward()
         outs.append(out.detach())
     assert torch.equal(outs[0], outs[1])

@@ -360,8 +360,13 @@ def test_train_cli_refuses_what_this_slice_lacks(tmp_path):
     with pytest.raises(ValueError, match="model=2"):
         _train(tmp_path, "parallel.tp=2")
     assert not torch.distributed.is_initialized()
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # the pipeline runs (test_torch_pipeline.py) with drop-path 0 and a
+    # process a stage
+    with pytest.raises(ValueError, match="stochastic depth"):
         _train(tmp_path, "parallel.pp=2")
+    with pytest.raises(ValueError, match="do not split into"):
+        _train(tmp_path, "parallel.pp=2", "model.params.drop_path_rate=0")
+    assert not torch.distributed.is_initialized()
     # the in-training eval is ported: the shard configs' own sample_fid_n
     # gets past the refusals
     for extra in (["data=churches256"], ["data.sample_fid_n=8"]):

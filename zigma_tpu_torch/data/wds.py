@@ -166,13 +166,14 @@ def list_shards(tar_base: str, shards: str) -> list[str]:
 
 def split_by_host(urls: list[str], process_index: Optional[int] = None,
                   process_count: Optional[int] = None) -> list[str]:
-    """Disjoint per-host shard subset (wds split_by_node equivalent)."""
+    """Disjoint per-host shard subset (wds split_by_node equivalent): by
+    default this process's data rank and the data ranks' count without a
+    mesh (``parallel.mesh.data_rank``: the process group's rank and
+    size)."""
     if process_index is None or process_count is None:
-        import torch.distributed as dist
+        from zigma_tpu_torch.parallel.mesh import data_rank
 
-        initialised = dist.is_available() and dist.is_initialized()
-        process_index = dist.get_rank() if initialised else 0
-        process_count = dist.get_world_size() if initialised else 1
+        process_index, process_count = data_rank()
     if process_count <= 1:
         return urls
     return urls[process_index::process_count]
@@ -509,7 +510,8 @@ class WebDataModuleFromConfig:
                  test: Optional[dict] = None, num_workers: int = 0,
                  multinode: bool = True, is_video: bool = False,
                  video_frames: int = 0, channel_last: bool = False,
-                 val_batch_size: Optional[int] = None, **kwargs):
+                 val_batch_size: Optional[int] = None,
+                 host_split: Optional[tuple] = None, **kwargs):
         self.tar_base = tar_base
         self.batch_size = batch_size
         self.image_size = image_size
@@ -521,11 +523,15 @@ class WebDataModuleFromConfig:
         self.video_frames = video_frames
         self.channel_last = channel_last
         self.val_batch_size = val_batch_size or batch_size
+        # (index, count) of this process's share of the shards under
+        # multinode: its data rank, so that the ranks training on one batch
+        # read the same shards (default: split_by_host's)
+        self.host_split = host_split or (None, None)
 
     def make_loader(self, cfg: dict, train: bool = True) -> WebDatasetReader:
         urls = list_shards(self.tar_base, cfg["shards"])
         if self.multinode:
-            urls = split_by_host(urls)
+            urls = split_by_host(urls, *self.host_split)
         transforms = dict(cfg.get("transforms", {}))
         img_key = cfg.get("image_key", "image.png")
         # the image key gets the standard [-1,1] CHW transform unless video

@@ -41,20 +41,20 @@ def to_uint8_images(arr: np.ndarray) -> np.ndarray:
 _KNOWN = ("fid", "sfid", "kid", "is", "prdc", "fdd", "fvd")
 
 
-def _world_size() -> int:
+def _world_size(group=None) -> int:
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
+        return dist.get_world_size(group)
     return 1
 
 
-def _all_gather(obj) -> list:
-    """Every process's ``obj``, in rank order."""
+def _all_gather(obj, group=None) -> list:
+    """Every process's ``obj`` in ``group`` (None: all), in rank order."""
     import torch.distributed as dist
 
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
@@ -65,6 +65,9 @@ class MyMetric:
     extractor: (B, C, H, W) -> (B, F) feature callable (see features.py).
     logits_extractor: only needed for "is".
     device: where the canonical nets run (None: CUDA).
+    group: the processes whose samples ``compute`` gathers (None: every
+    process); the trainer sets its ``data`` group, whose ranks hold
+    distinct samples.
     """
 
     def __init__(self, choices: Sequence[str] = ("fid",),
@@ -72,11 +75,13 @@ class MyMetric:
                  logits_extractor: Optional[Callable] = None,
                  kid_subset_size: int = 50, prdc_k: int = 5,
                  max_stored: int = 50_000,
-                 stream_extractors: Optional[dict] = None, device=None):
+                 stream_extractors: Optional[dict] = None, device=None,
+                 group=None):
         unknown = set(choices) - set(_KNOWN)
         if unknown:
             raise ValueError(f"unknown metric choices: {unknown}")
         self.choices = list(choices)
+        self.group = group
 
         # Each Frechet-family choice needs ITS OWN feature net (fid: 2048-d
         # Inception pool, sfid: spatial Mixed-6e slice, fdd: DINOv2, fvd:
@@ -185,16 +190,15 @@ class MyMetric:
                 mom = (self.fake_mom.get("main") or self.real_mom.get("main"))
                 dim = mom.dim if mom else 1
             local = np.zeros((0, dim), np.float64)
-        if _world_size() <= 1:
+        if _world_size(self.group) <= 1:
             return local
         return np.concatenate(
             [np.asarray(a).reshape(-1, local.shape[-1])
-             for a in _all_gather(local)], axis=0)
+             for a in _all_gather(local, self.group)], axis=0)
 
-    @staticmethod
-    def _merged(mom: RunningMoments) -> RunningMoments:
+    def _merged(self, mom: RunningMoments) -> RunningMoments:
         merged = RunningMoments(mom.dim)
-        for st in _all_gather(mom.state()):
+        for st in _all_gather(mom.state(), self.group):
             merged.n += int(st["n"])
             merged.sum += st["sum"]
             merged.outer += st["outer"]
@@ -202,7 +206,7 @@ class MyMetric:
 
     def compute(self, sync: bool = True) -> dict:
         real_mom, fake_mom = self.real_mom, self.fake_mom
-        if sync and _world_size() > 1 and real_mom:
+        if sync and _world_size(self.group) > 1 and real_mom:
             real_mom = {k: self._merged(v) for k, v in real_mom.items()}
             fake_mom = {k: self._merged(v) for k, v in fake_mom.items()}
 

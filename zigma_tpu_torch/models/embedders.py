@@ -4,7 +4,9 @@ Counterpart of ``zigma_tpu/models/embedders.py``.  Parameters are float32
 and keep the reference torch names (``x_embedder.proj``,
 ``t_embedder.mlp.0/2``, ``y_embedder.embedding_table``); each module computes
 in the model's ``dtype``.  A text model's caption features go through a
-plain Linear ``y_embedder`` (``models/zigma.py``).
+plain Linear ``y_embedder`` (``models/zigma.py``); ``CaptionEmbedder``, the
+caption MLP with a learned null caption, is the reference's capability that
+no shipped config uses.
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from zigma_tpu_torch.models.inits import normal_, uniform_
+from zigma_tpu_torch.models.inits import normal_, torch_linear_init_, uniform_
 
 __all__ = ["PatchEmbed", "TimestepEmbedder", "LabelEmbedder",
-           "get_2d_sincos_pos_embed", "dense"]
+           "CaptionEmbedder", "get_2d_sincos_pos_embed", "dense"]
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -133,6 +135,52 @@ class LabelEmbedder(nn.Module):
                 drop = force_drop_ids == 1
             labels = torch.where(drop, self.num_classes, labels)
         return self.embedding_table(labels)
+
+
+class CaptionEmbedder(nn.Module):
+    """Caption-feature MLP with a learned null caption for the CFG drop:
+    ``zigma_tpu/models/embedders.py::CaptionEmbedder``.  ``y_proj.fc1`` /
+    ``y_proj.fc2`` (the reference's names) with a tanh-approximate GELU
+    between, in ``dtype``; ``y_embedding`` (token_num, in_channels), N(0,
+    1 / in_channels), replaces a caption dropped under training (each with
+    probability ``uncond_prob``, drawn from ``generator``) or where
+    ``force_drop_ids`` is 1."""
+
+    def __init__(self, in_channels: int, hidden_size: int,
+                 uncond_prob: float = 0.0, token_num: int = 120,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.uncond_prob, self.dtype = uncond_prob, dtype
+        self.y_embedding = nn.Parameter(
+            torch.empty(token_num, in_channels, device=device))
+        self.y_proj = nn.Module()
+        self.y_proj.fc1 = nn.Linear(in_channels, hidden_size, device=device)
+        self.y_proj.fc2 = nn.Linear(hidden_size, hidden_size, device=device)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        normal_(self.y_embedding, self.y_embedding.shape[-1] ** -0.5,
+                generator)
+        for lin in (self.y_proj.fc1, self.y_proj.fc2):
+            torch_linear_init_(lin.weight, generator)
+            nn.init.zeros_(lin.bias)
+
+    def forward(self, caption, train: bool = False,
+                force_drop_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """caption (B, token_num, in_channels) -> (B, token_num,
+        hidden_size)."""
+        if (train and self.uncond_prob > 0) or force_drop_ids is not None:
+            if force_drop_ids is None:
+                drop = torch.rand((caption.shape[0],), generator=generator,
+                                  device=caption.device) < self.uncond_prob
+            else:
+                drop = force_drop_ids == 1
+            caption = torch.where(drop[:, None, None],
+                                  self.y_embedding.to(caption.dtype), caption)
+        h = F.gelu(dense(self.y_proj.fc1, caption, self.dtype),
+                   approximate="tanh")
+        return dense(self.y_proj.fc2, h, self.dtype)
 
 
 def _get_1d_sincos(embed_dim: int, pos: np.ndarray) -> np.ndarray:

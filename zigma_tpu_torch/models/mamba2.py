@@ -65,7 +65,20 @@ from zigma_tpu_torch.parallel.collectives import (copy_to_group, gather_last,
                                                   row_parallel_linear,
                                                   split_last)
 
-__all__ = ["Mamba2", "Mamba2Cache"]
+__all__ = ["Mamba2", "Mamba2Cache", "scan_out"]
+
+
+@torch.library.custom_op("zigma::scan_out", mutates_args=())
+def scan_out(y: torch.Tensor) -> torch.Tensor:
+    """The SSD's output under a name a selective-remat policy can keep
+    (``checkpoint_name(y, "scan_out")`` in the JAX package): a copy, since
+    an operator's output may not alias its input; its gradient passes
+    through."""
+    return y.clone()
+
+
+scan_out.register_fake(lambda y: torch.empty_like(y))
+scan_out.register_autograd(lambda ctx, g: g)
 
 
 class Mamba2Cache:
@@ -154,6 +167,9 @@ class Mamba2(nn.Module):
         # tensor parallelism (parallel.mesh.apply_tensor_parallel): the
         # group over which in_proj's outputs and out_proj's inputs are split
         self.tp_group = None
+        # ZigMa sets it under remat_policy scan_out: each branch's SSD
+        # output goes through ``scan_out``, which the policy keeps
+        self.name_scan_out = False
         register_path_tables(self, perm, perm_rev, self.video, device)
 
     @torch.no_grad()
@@ -209,7 +225,8 @@ class Mamba2(nn.Module):
                        backend=self.scan_backend, chunk=self.scan_chunk)
         if return_last_state:
             return out[0].reshape(B_, L, self.d_inner), out[1]
-        return out.reshape(B_, L, self.d_inner)
+        out = out.reshape(B_, L, self.d_inner)
+        return scan_out(out) if self.name_scan_out else out
 
     def _in(self, x):
         """``in_proj`` -> (z, xBC, dt).  Under tensor parallelism it is

@@ -47,19 +47,34 @@ before each block i, ``pos_embed_layers.{i}`` (the reference aliased one
 unregistered tensor, so it has no name for them; this one matches the
 JAX package's stacked ``pos_embed_layers``).
 
-Selective remat policies are a later slice: asking for one raises.
+Selective remat (``remat_policy`` with ``use_checkpoint``, the JAX
+``_remat_policy``): the per-block checkpoint takes a
+``create_selective_checkpoint_contexts`` policy that keeps the outputs of
+the ops it names and recomputes the rest.  ``scan_out`` keeps the scan's:
+the registered K1 operator ``zigma::selective_scan_fwd`` (so the recompute
+launches no K1) or, in a Mamba-2 block, each SSD output through
+``zigma::scan_out``; ``dots`` keeps the GEMMs (``aten.mm`` / ``addmm`` /
+``bmm``); ``scan_out+dots`` both.  The gradients are full remat's: the
+kept values are the ones the recompute would make.
+
+The forward is three pieces, ``embed`` (patches, position tables,
+conditioning), ``run_blocks`` and ``head`` (the final add-norm, the
+FinalLayer and unpatchify): the seams at which ``parallel/pipeline.py``
+splits the model into stages, as the JAX forward's ``_stage`` ones.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from zigma_tpu_torch.models.embedders import (LabelEmbedder, PatchEmbed,
                                               TimestepEmbedder, dense,
@@ -74,7 +89,34 @@ from zigma_tpu_torch.parallel.collectives import (copy_to_group,
 
 __all__ = ["ZigMa", "ZigMaBlock", "CrossAttention", "FinalLayer",
            "ZIGMA_PRESETS", "zigma_flops", "modulate", "drop_path",
-           "drop_path_rates"]
+           "drop_path_rates", "REMAT_POLICIES", "remat_policy_fn"]
+
+REMAT_POLICIES = ("scan_out", "dots", "scan_out+dots")
+
+
+def remat_policy_fn(name: Optional[str]):
+    """The selective-checkpoint policy of a ``remat_policy`` name (None:
+    none, whole-block remat): ``policy(ctx, op, *args, **kwargs)`` keeps
+    (``MUST_SAVE``) the outputs of the ops the name covers and recomputes
+    the rest.  Counterpart of ``zigma_tpu/models/zigma.py::_remat_policy``;
+    an unknown name raises ValueError."""
+    if name is None:
+        return None
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {name!r}; one of "
+                         f"{sorted(REMAT_POLICIES)} or None")
+    aten, zigma = torch.ops.aten, torch.ops.zigma
+    kept = set()
+    if "scan_out" in name.split("+"):
+        kept |= {zigma.selective_scan_fwd.default, zigma.scan_out.default}
+    if "dots" in name.split("+"):
+        kept |= {aten.mm.default, aten.addmm.default, aten.bmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in kept
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
 
 
 def modulate(x, shift, scale):
@@ -278,13 +320,12 @@ class ZigMa(nn.Module):
         self.drop_path_rate, self.use_checkpoint = drop_path_rate, use_checkpoint
         self.class_dropout_prob = class_dropout_prob
         self.video_frames, self.tpe = video_frames, tpe
-        if remat_policy is not None:
-            if remat_policy not in ("scan_out", "dots", "scan_out+dots"):
-                raise ValueError(f"unknown remat_policy {remat_policy!r}; one "
-                                 f"of dots, scan_out, scan_out+dots or None")
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r} (selective remat) lands in a "
-                f"later slice of the port; None remats whole blocks")
+        self.remat_policy = remat_policy
+        # raises on an unknown name; without use_checkpoint it does nothing
+        policy = remat_policy_fn(remat_policy)
+        self._remat_context = (
+            partial(create_selective_checkpoint_contexts, policy)
+            if policy is not None and use_checkpoint else None)
 
         side = img_dim // patch_size
         n_patches = side * side
@@ -328,6 +369,10 @@ class ZigMa(nn.Module):
                        residual_in_fp32=residual_in_fp32, n_layer=depth,
                        dtype=dtype, device=device)
             for i in range(depth)])
+        if self._remat_context is not None and "scan_out" in remat_policy:
+            for block in self.blocks:
+                if isinstance(block.mixer, Mamba2):
+                    block.mixer.name_scan_out = True
         self.norm_f = _Norm(embed_dim, bias=not rms_norm, device=device)
         self.final_layer = FinalLayer(embed_dim, patch_size, in_channels,
                                       dtype=dtype, device=device)
@@ -358,22 +403,7 @@ class ZigMa(nn.Module):
         labels, (B, n_context_token, d_context) caption features or None.
         ``train`` turns on stochastic depth and the label drop, whose draws
         come from ``generator`` (the default generator when None)."""
-        h = self.x_embedder(x)
-        B, L, E = h.shape
-        c = self.t_embedder((t * 1000.0).float())
-        text = None
-        if self.has_text:  # the projected tokens are every block's context
-            text = dense(self.y_embedder, y, self.dtype)
-            c = c + text.mean(1)
-        elif self.num_classes > 0:
-            c = c + self.y_embedder(y, train=train, generator=generator)
-        if self.use_pe == 1:
-            h = h + self.pe_table.to(self.dtype)[None]
-        elif self.use_pe == 2:
-            h = h + self.pos_embed.to(self.dtype)
-        if self.video_frames > 0 and self.tpe:
-            tpe = self.temporal_pos_embedding.to(self.dtype)[:, :, None]
-            h = (h.reshape(B, self.video_frames, -1, E) + tpe).reshape(B, L, E)
+        h, c, text = self.embed(x, t, y, train, generator)
         drops = [None] * (self.depth + 1)
         if train and self.drop_path_rate > 0:
             # every mask before the stack: a remat recompute must see the same
@@ -382,18 +412,64 @@ class ZigMa(nn.Module):
             u = torch.rand((len(rates), x.shape[0]), generator=generator,
                            device=x.device)
             drops = [(float(r), u[i] < 1.0 - r) for i, r in enumerate(rates)]
+        h, residual = self.run_blocks(h, None, c, text, drops)
+        return self.head(h, residual, drops[-1])
+
+    def embed(self, x, t, y=None, train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              force_drop_ids: Optional[torch.Tensor] = None):
+        """The stack's inputs: tokens h (B, L, embed) with their position
+        tables, the conditioning c (B, embed) and a text model's context
+        (B, S, embed), else None.  ``force_drop_ids`` (1 = drop) replaces
+        the label drop's draw."""
+        h = self.x_embedder(x)
+        B, L, E = h.shape
+        c = self.t_embedder((t * 1000.0).float())
+        text = None
+        if self.has_text:  # the projected tokens are every block's context
+            text = dense(self.y_embedder, y, self.dtype)
+            c = c + text.mean(1)
+        elif self.num_classes > 0:
+            c = c + self.y_embedder(y, train=train, generator=generator,
+                                    force_drop_ids=force_drop_ids)
+        if self.use_pe == 1:
+            h = h + self.pe_table.to(self.dtype)[None]
+        elif self.use_pe == 2:
+            h = h + self.pos_embed.to(self.dtype)
+        if self.video_frames > 0 and self.tpe:
+            tpe = self.temporal_pos_embedding.to(self.dtype)[:, :, None]
+            h = (h.reshape(B, self.video_frames, -1, E) + tpe).reshape(B, L, E)
+        return h, c, text
+
+    def block_items(self):
+        """``(i, block)`` for the blocks this module holds: all of them, or
+        a pipeline stage's (``parallel.pipeline.split_stage``)."""
+        if isinstance(self.blocks, nn.ModuleDict):
+            return [(int(i), b) for i, b in self.blocks.items()]
+        return list(enumerate(self.blocks))
+
+    def run_blocks(self, h, residual, c, text=None, drops=None):
+        """The held blocks in order over (h, residual); ``drops``: each
+        block's ``(rate, keep_mask)`` or None, indexed by block.  Returns
+        (h, residual)."""
         remat = self.use_checkpoint and torch.is_grad_enabled()
-        residual = None
-        for i, (block, drop) in enumerate(zip(self.blocks, drops)):
+        kw = ({} if self._remat_context is None
+              else dict(context_fn=self._remat_context))
+        for i, block in self.block_items():
+            drop = None if drops is None else drops[i]
             if self.use_pe == 3:
                 h = h + self.pos_embed_layers[i].to(self.dtype)
             if remat:
                 h, residual = checkpoint(block, h, residual, c, drop, text,
-                                         use_reentrant=False)
+                                         use_reentrant=False, **kw)
             else:
                 h, residual = block(h, residual, c, drop, text)
-        if drops[-1] is not None:
-            h = drop_path(h, *drops[-1])
+        return h, residual
+
+    def head(self, h, residual, drop=None):
+        """The final drop-path, add-norm, FinalLayer and unpatchify."""
+        if drop is not None:
+            h = drop_path(h, *drop)
         h = add_norm(h, self.norm_f.weight, self.norm_f.bias, residual,
                      kind="rms" if self.rms_norm else "layer",
                      eps=self.norm_epsilon, prenorm=False,

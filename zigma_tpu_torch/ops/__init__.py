@@ -10,7 +10,7 @@ from zigma_tpu_torch.ops.paths import (
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
 from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
                                                causal_conv1d_update)
-from zigma_tpu_torch.ops.selective_scan import (SelectiveScanFn, selective_scan,
+from zigma_tpu_torch.ops.selective_scan import (scan_with_grad, selective_scan,
                                                 selective_scan_bwd_ref,
                                                 selective_scan_ref,
                                                 selective_state_update)
@@ -31,7 +31,7 @@ __all__ = [
     "rms_norm",
     "causal_conv1d",
     "causal_conv1d_update",
-    "SelectiveScanFn",
+    "scan_with_grad",
     "selective_scan",
     "selective_scan_ref",
     "selective_state_update",

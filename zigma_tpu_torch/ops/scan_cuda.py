@@ -189,7 +189,7 @@ def selective_scan_fwd_cuda(u, delta, A, B, C, delta_bias,
             t is not None and t.requires_grad for t in tensors.values()):
         raise NotImplementedError(
             "selective_scan_fwd_cuda does not record a gradient: call "
-            "selective_scan (or SelectiveScanFn), whose backward is the K2 "
+            "selective_scan (or scan_with_grad), whose backward is the K2 "
             "kernel, or run under torch.no_grad()")
     batch, L, d, N, dtype, rows = _check_scan_inputs(
         "selective_scan_fwd_cuda", tensors, ("A", "delta_bias", "D", "x0"))

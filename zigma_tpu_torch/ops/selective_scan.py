@@ -12,9 +12,12 @@ tensors to the plain versions; ``backend="ref"`` forces the plain versions on
 any device (the tests and ``chip_smoke.py`` compare the two that way).
 Without a gradient it calls the forward alone (``selective_scan_fwd_cuda`` or
 ``selective_scan_ref``).  When a gradient is needed it goes through
-``SelectiveScanFn``, whose forward keeps the chunk-start states and whose
-backward is ``selective_scan_bwd_cuda`` (CUDA) or ``selective_scan_bwd_ref``
-(CPU).  This slice covers real A with variable (batch, L, N) B/C -- the
+``scan_with_grad``: the registered operator ``zigma::selective_scan_fwd``
+(``selective_scan_fwd_op``), whose forward keeps the chunk-start states and
+whose backward, attached by ``register_autograd``, is
+``selective_scan_bwd_cuda`` (CUDA) or ``selective_scan_bwd_ref`` (CPU).  As
+an operator the forward is visible to a selective-checkpoint policy, which
+can keep its outputs for the backward instead of recomputing them.  This slice covers real A with variable (batch, L, N) B/C -- the
 ZigMa path, with an optional seed state and the final state under autograd
 (``core_x0`` / ``core_full``, which sequence parallelism runs); complex A,
 grouped or static B/C are later slices and raise.
@@ -36,7 +39,7 @@ from zigma_tpu_torch.ops.scan_cuda import (CARRY_EVERY, selective_scan_bwd_cuda,
                                            selective_scan_fwd_cuda)
 
 __all__ = ["selective_scan", "selective_scan_ref", "selective_scan_bwd_ref",
-           "SelectiveScanFn", "core_x0", "core_full", "kernel_params",
+           "selective_scan_fwd_op", "scan_with_grad", "core_x0", "core_full", "kernel_params",
            "selective_state_update"]
 
 
@@ -186,75 +189,106 @@ def selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries, gy,
 selective_scan_bwd_ref.calls = 0
 
 
-class SelectiveScanFn(torch.autograd.Function):
-    """The scan with both directions: the counterpart of the JAX package's
-    custom VJPs ``_core`` (D and z None), ``_fused`` (D and z given),
-    ``_core_x0`` (a seed ``x0``) and ``_core_full`` (the final state as a
-    second output, ``return_last_state``).
+# K1 as a registered operator: a selective-checkpoint policy decides per
+# dispatched op, so it can name this one (``models/zigma.remat_policy_fn``'s
+# ``scan_out``) and keep its outputs instead of launching K1 again in the
+# recompute.  Its backward is K2 (``register_autograd`` below).
+@torch.library.custom_op("zigma::selective_scan_fwd", mutates_args=())
+def selective_scan_fwd_op(u: torch.Tensor, delta: torch.Tensor,
+                          A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                          delta_bias: torch.Tensor, D: Optional[torch.Tensor],
+                          z: Optional[torch.Tensor], x0: Optional[torch.Tensor],
+                          delta_softplus: bool, use_ref: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scan forward keeping what its backward needs: ``(out, carries,
+    x_last)`` as ``selective_scan_fwd_cuda`` returns them.  A, D and the
+    bias as ``kernel_params`` gives them (the bias always a tensor), x0 an
+    optional (batch, N, d) fp32 seed.  K1 on a CUDA tensor (it raises
+    without softplus: no fallback); the plain version on the CPU or with
+    ``use_ref``."""
+    with torch.no_grad():
+        if use_ref or u.device.type != "cuda":
+            return selective_scan_ref(u, delta, A, B, C, D, z, delta_bias,
+                                      delta_softplus, x0=x0)
+        if not delta_softplus:
+            raise NotImplementedError(
+                "the CUDA kernels always take dt = softplus(delta + "
+                "delta_bias); a scan without softplus lands in a later "
+                "slice of the port")
+        return selective_scan_fwd_cuda(u, delta, A, B, C, delta_bias, D, z,
+                                       x0=x0, return_carries=True)
 
-    forward: the K1 kernel on CUDA, ``selective_scan_ref`` on the CPU (or
-    with ``use_ref``), keeping the chunk-start states, whose first chunk is
-    the seed, so the backward's recompute starts from it; backward: the K2
-    kernel on CUDA, ``selective_scan_bwd_ref`` on the CPU (or with
-    ``use_ref``), seeded by the final state's cotangent and giving x0's
-    (``dx0``).  Where only one of the two outputs reaches the loss autograd
-    hands None for the other: a missing ``g_last`` is no seed (zeros), a
-    missing output cotangent a zero tensor.  The kernels take only dt =
-    softplus(delta + bias), and A, D and the bias through
-    ``kernel_params``: a missing bias is zeros and gets no gradient, and the
-    gradients of A, D and the bias come back in the caller's dtypes.
+
+@selective_scan_fwd_op.register_fake
+def _(u, delta, A, B, C, delta_bias, D, z, x0, delta_softplus, use_ref):
+    batch, L, d = u.shape
+    N = A.shape[1]
+    f32 = dict(dtype=torch.float32)
+    return (u.new_empty((batch, L, d)),
+            u.new_empty((batch, -(-L // CARRY_EVERY), N, d), **f32),
+            u.new_empty((batch, N, d), **f32))
+
+
+def _scan_setup(ctx, inputs, output):
+    u, delta, A, B, C, delta_bias, D, z, x0, delta_softplus, use_ref = inputs
+    ctx.save_for_backward(u, delta, A, B, C, delta_bias, D, z, output[1])
+    ctx.delta_softplus, ctx.use_ref = delta_softplus, use_ref
+    ctx.has_x0 = x0 is not None
+    # an output no loss reads gets None, not a zero tensor
+    ctx.set_materialize_grads(False)
+
+
+def _scan_backward(ctx, gy, g_carries, g_last):
+    """K2 (the plain adjoint on the CPU or with ``use_ref``), seeded by the
+    final state's cotangent; a missing output cotangent is a zero tensor,
+    a missing ``g_last`` no seed."""
+    del g_carries  # the chunk starts are for the backward only
+    u, delta, A, B, C, delta_bias, D, z, carries = ctx.saved_tensors
+    if gy is None:  # only the final state reached the loss
+        gy = torch.zeros_like(u)
+    if g_last is not None:
+        g_last = g_last.to(torch.float32).contiguous()
+    if not ctx.use_ref and u.device.type == "cuda":
+        g = selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C, carries,
+                                    gy, g_last, D, z)
+    else:
+        g = selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries, gy,
+                                   g_last, D, z, ctx.delta_softplus)
+    du, dd, dA, dB, dC, dbias, dx0 = g[:7]
+    dz, dD = g[7:] if z is not None else (None, None)
+    return (du, dd, dA, dB, dC, dbias, dD, dz, dx0 if ctx.has_x0 else None,
+            None, None)
+
+
+selective_scan_fwd_op.register_autograd(_scan_backward,
+                                        setup_context=_scan_setup)
+
+
+def scan_with_grad(u, delta, A, B, C, delta_bias, D, z, delta_softplus: bool,
+                   use_ref: bool, x0=None, return_last_state: bool = False):
+    """The scan with both directions through ``selective_scan_fwd_op``: the
+    counterpart of the JAX package's custom VJPs ``_core`` (D and z None),
+    ``_fused`` (D and z given), ``_core_x0`` (a seed ``x0``) and
+    ``_core_full`` (the final state as a second output,
+    ``return_last_state``).
+
+    Forward: K1 on CUDA, keeping the chunk-start states, whose first chunk
+    is the seed, so the backward's recompute starts from it; backward: K2,
+    seeded by the final state's cotangent and giving x0's (``dx0``); the
+    plain versions on the CPU or with ``use_ref``.  A, D and the bias go in
+    through ``kernel_params``, so a missing bias is zeros that get no
+    gradient and the gradients of A, D, the bias and x0 come back in the
+    caller's dtypes through the casts.
 
     Returns out (batch, L, d) in u's dtype, and with ``return_last_state``
     also the final state (batch, N, d) fp32.
     """
-
-    @staticmethod
-    def forward(ctx, u, delta, A, B, C, delta_bias, D, z, delta_softplus,
-                use_ref, x0=None, return_last_state=False):
-        ctx.dtypes = tuple(None if t is None else t.dtype
-                           for t in (A, delta_bias, D))
-        if not use_ref and u.device.type == "cuda":
-            if not delta_softplus:
-                raise NotImplementedError(
-                    "the CUDA kernels always take dt = softplus(delta + "
-                    "delta_bias); a scan without softplus lands in a later "
-                    "slice of the port")
-            A, D, bias = kernel_params(A, D, delta_bias)
-            x0k = None if x0 is None else x0.to(torch.float32).contiguous()
-            out, carries, x_last = selective_scan_fwd_cuda(
-                u, delta, A, B, C, bias, D, z, x0=x0k, return_carries=True)
-        else:
-            bias = delta_bias
-            out, carries, x_last = selective_scan_ref(
-                u, delta, A, B, C, D, z, delta_bias, delta_softplus, x0=x0)
-        ctx.save_for_backward(u, delta, A, B, C, bias, D, z, carries)
-        ctx.delta_softplus, ctx.use_ref = delta_softplus, use_ref
-        ctx.x0_dtype = None if x0 is None else x0.dtype
-        ctx.set_materialize_grads(False)
-        return (out, x_last) if return_last_state else out
-
-    @staticmethod
-    def backward(ctx, gy, g_last=None):
-        u, delta, A, B, C, delta_bias, D, z, carries = ctx.saved_tensors
-        if gy is None:  # only the final state reached the loss
-            gy = torch.zeros_like(u)
-        if g_last is not None:
-            g_last = g_last.to(torch.float32).contiguous()
-        if not ctx.use_ref and u.device.type == "cuda":
-            g = selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C,
-                                        carries, gy, g_last, D, z)
-        else:
-            g = selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries,
-                                       gy, g_last, D, z, ctx.delta_softplus)
-        du, dd, dA, dB, dC, dbias, dx0 = g[:7]
-        dz, dD = g[7:] if z is not None else (None, None)
-        # the parameters' gradients in the caller's dtypes (the kernels took
-        # fp32 copies); none for a bias or a seed the caller did not give
-        A_t, bias_t, D_t = ctx.dtypes
-        return (du, dd, dA.to(A_t), dB, dC,
-                None if bias_t is None else dbias.to(bias_t),
-                None if dD is None else dD.to(D_t), dz, None, None,
-                None if ctx.x0_dtype is None else dx0.to(ctx.x0_dtype), None)
+    A, D, bias = kernel_params(A, D, delta_bias)
+    if x0 is not None:
+        x0 = x0.to(torch.float32).contiguous()
+    out, _, x_last = selective_scan_fwd_op(u, delta, A, B, C, bias, D, z, x0,
+                                           delta_softplus, use_ref)
+    return (out, x_last) if return_last_state else out
 
 
 def core_x0(u, delta, A, B, C, delta_bias=None, x0=None,
@@ -265,8 +299,8 @@ def core_x0(u, delta, A, B, C, delta_bias=None, x0=None,
     (K2's ``dx0``).  One K1 launch forward and one K2 launch backward on
     CUDA (``backend="ref"``: the plain versions)."""
     _check_supported(A, B, C)
-    return SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, None, None,
-                                 delta_softplus, _use_ref(u, backend), x0)
+    return scan_with_grad(u, delta, A, B, C, delta_bias, None, None,
+                          delta_softplus, _use_ref(u, backend), x0)
 
 
 def core_full(u, delta, A, B, C, delta_bias=None, x0=None,
@@ -276,9 +310,8 @@ def core_full(u, delta, A, B, C, delta_bias=None, x0=None,
     both differentiable: the final state's cotangent seeds K2's reverse
     walk (``g_last``)."""
     _check_supported(A, B, C)
-    return SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, None, None,
-                                 delta_softplus, _use_ref(u, backend), x0,
-                                 True)
+    return scan_with_grad(u, delta, A, B, C, delta_bias, None, None,
+                          delta_softplus, _use_ref(u, backend), x0, True)
 
 
 def _use_ref(u, backend):
@@ -303,7 +336,7 @@ def selective_scan(u, delta, A, B, C,
     kernels; with only one of them the skip term or the gate is composed
     around the core scan in torch ops, as ``selective_scan_pallas`` does in
     jnp, with a gradient or without.  When a gradient is needed the scan
-    goes through ``SelectiveScanFn``.
+    goes through ``scan_with_grad`` (the registered op K1 / K2 back).
     Returns out (batch, L, d) in u's dtype, and with ``return_last_state``
     also the final state (batch, d, N) fp32 (the JAX function's layout).
     """
@@ -320,7 +353,7 @@ def selective_scan(u, delta, A, B, C,
         # the final state from a zero seed, as selective_scan_pallas runs
         # _core_full; the gate is fused where D and z come together
         fused = D is not None and z is not None
-        res = SelectiveScanFn.apply(
+        res = scan_with_grad(
             u, delta, A, B, C, delta_bias, D if fused else None,
             z if fused else None, delta_softplus, use_ref, None,
             return_last_state)

@@ -6,13 +6,17 @@ parallelism is DDP over NCCL through HF Accelerate (train_acc.py:121-123,
 249); the JAX package adds FSDP (ZeRO-3) and a tensor-parallel ``model``
 axis.  Here:
 
-- ``make_mesh(data, model)`` is ``init_device_mesh`` with the JAX axis
-  names ``("data", "model")``; a ``pipe`` axis raises (the pipeline is the
-  next slice of the port).
-- Each process draws its own batch: the global batch is ``world x
-  data.batch_size``, the JAX and DDP semantics.  ``shard_batch`` gives the
-  ranks of one model group their first rank's batch, since tensor
-  parallelism replicates the activations.
+- ``make_mesh(data, model, pipe)`` is ``init_device_mesh`` with the JAX
+  axis names ``("data", "model")``, and ``("data", "model", "pipe")``
+  with pipe innermost when ``pipe`` is given (the pipeline,
+  ``parallel/pipeline.py``).  ``data_rank(mesh)`` is this process's rank
+  and the size of its ``data`` group.
+- Each data rank draws its own batch: the global batch is ``data ranks x
+  data.batch_size``, the JAX and DDP semantics.  Shards, seeds and draws
+  follow the data rank, so the ranks of one model or pipe group read the
+  same batch; ``shard_batch`` broadcasts it from each group's first rank
+  all the same, and ``same_in_group`` does so for any object (the vis and
+  eval batches).
 - ``parallelize`` places a model and its EMA copy: tensor parallelism over
   the ``model`` axis first (``apply_tensor_parallel``), then DDP
   (``gradient_as_bucket_view``) or, with ``fsdp``, FSDP2 (``fully_shard`` on
@@ -49,9 +53,9 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-__all__ = ["init_process_group", "make_mesh", "shard_batch", "replicate",
-           "tp_rules", "tp_shard", "tp_unshard", "apply_tensor_parallel",
-           "ParallelLayout", "parallelize"]
+__all__ = ["init_process_group", "make_mesh", "data_rank", "shard_batch",
+           "same_in_group", "replicate", "tp_rules", "tp_shard", "tp_unshard",
+           "apply_tensor_parallel", "ParallelLayout", "parallelize"]
 
 
 def init_process_group(device: torch.device, launched: bool) -> bool:
@@ -74,43 +78,77 @@ def init_process_group(device: torch.device, launched: bool) -> bool:
     return True
 
 
-def make_mesh(data: int = -1, model: int = 1, pipe: int = 1,
+def make_mesh(data: int = -1, model: int = 1, pipe: Optional[int] = None,
               device_type: Optional[str] = None):
     """A ``("data", "model")`` device mesh over the process group's ranks
-    (rank = data_index * model + model_index); ``data=-1`` takes the
-    ranks the model axis leaves."""
-    if pipe > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (parallel.pp, the JAX package's "
-            "parallel/pipeline.py) lands in the next slice of the port")
+    (rank = data_index * model + model_index), or with ``pipe`` (one
+    included) ``("data", "model", "pipe")``, pipe innermost (rank =
+    (data_index * model + model_index) * pipe + pipe_index); ``data=-1``
+    takes the ranks the other axes leave."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group "
                            "(init_process_group)")
     from torch.distributed.device_mesh import init_device_mesh
 
     n = dist.get_world_size()
+    inner = model * (pipe or 1)
     if data == -1:
-        if model < 1 or n % model:
-            raise ValueError(f"{n} processes do not split into model={model}")
-        data = n // model
-    if data * model != n:
-        raise ValueError(f"mesh {data}x{model} != {n} processes")
+        if model < 1 or (pipe or 1) < 1 or n % inner:
+            raise ValueError(f"{n} processes do not split into model={model}"
+                             f" x pipe={pipe or 1}")
+        data = n // inner
+    if data * inner != n:
+        raise ValueError(f"mesh {data}x{model}x{pipe or 1} != {n} processes")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (data, model),
-                            mesh_dim_names=("data", "model"))
+    if pipe is None:
+        return init_device_mesh(device_type, (data, model),
+                                mesh_dim_names=("data", "model"))
+    return init_device_mesh(device_type, (data, model, pipe),
+                            mesh_dim_names=("data", "model", "pipe"))
+
+
+def data_rank(mesh=None) -> tuple:
+    """``(rank, size)`` of this process in ``mesh``'s ``data`` group: what
+    shards and seeds follow.  Without a mesh every process of the process
+    group is a data rank, and without a process group this one is ``(0,
+    1)``."""
+    if mesh is not None:
+        return mesh["data"].get_local_rank(), mesh["data"].size()
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _inner_groups(mesh) -> list:
+    """The model and pipe groups of ``mesh`` with more than one rank."""
+    return [mesh[d].get_group() for d in mesh.mesh_dim_names
+            if d != "data" and mesh[d].size() > 1]
 
 
 def shard_batch(batch: dict, mesh) -> dict:
-    """This process's part of the global batch: its own, except that the
-    ranks of one model group take their first rank's (in place, by
-    broadcast)."""
-    group = mesh["model"].get_group()
-    if dist.get_world_size(group) > 1:
+    """This process's part of the global batch: its own, which the ranks of
+    one model (or pipe) group share; they take their first rank's all the
+    same (in place, by broadcast)."""
+    for group in _inner_groups(mesh):
         src = dist.get_global_rank(group, 0)
         for v in batch.values():
             dist.broadcast(v, src=src, group=group)
     return batch
+
+
+def same_in_group(obj, mesh):
+    """``obj`` as the first rank of this process's model (and pipe) group
+    has it, on every rank of the group (pickled, so numpy batches of any
+    size pass)."""
+    if mesh is None:
+        return obj
+    for group in _inner_groups(mesh):
+        box = [obj]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                   group=group)
+        obj = box[0]
+    return obj
 
 
 @torch.no_grad()

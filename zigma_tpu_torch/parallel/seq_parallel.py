@@ -33,7 +33,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from zigma_tpu_torch.ops.selective_scan import (SelectiveScanFn,
+from zigma_tpu_torch.ops.selective_scan import (scan_with_grad,
                                                 _skip_and_gate, _use_ref,
                                                 core_full, core_x0)
 from zigma_tpu_torch.ops.ssd import ssd_scan
@@ -81,8 +81,8 @@ def _scan_pass2(u, delta, A, B, C, D, z, delta_bias, x_in, delta_softplus,
     into the kernel where D and z come together."""
     use_ref = _use_ref(u, backend)
     if D is not None and z is not None:
-        return SelectiveScanFn.apply(u, delta, A, B, C, delta_bias, D, z,
-                                     delta_softplus, use_ref, x_in)
+        return scan_with_grad(u, delta, A, B, C, delta_bias, D, z,
+                              delta_softplus, use_ref, x_in)
     y = core_x0(u, delta, A, B, C, delta_bias, x_in, delta_softplus, backend)
     return _skip_and_gate(y, u, D, z)
 

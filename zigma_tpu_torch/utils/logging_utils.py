@@ -1,10 +1,11 @@
 """Logging and metric sinks (wandb optional).
 
-Own copy of ``zigma_tpu/utils/logging_utils.py``'s ``create_logger``, the
-JSONL part of ``MetricLogger``, ``array_to_image_grid`` and
-``write_video_grid``: every record
-lands in ``{run_dir}/metrics.jsonl``; wandb mirrors it only when asked for
-and installed.  The port runs one process, so there is no rank gate.
+Own copy of ``zigma_tpu/utils/logging_utils.py``'s ``create_logger``,
+``MetricLogger`` (the JSONL stream and ``log_media``), ``array_to_image_grid``,
+``write_video_grid`` and ``pos_embed_similarity_grid``: every record lands
+in ``{run_dir}/metrics.jsonl``; wandb mirrors records and vis files only
+when asked for and installed.  The trainer makes a logger on rank 0 alone,
+so there is no rank gate here.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 __all__ = ["create_logger", "MetricLogger", "array_to_image_grid",
-           "write_video_grid"]
+           "write_video_grid", "pos_embed_similarity_grid"]
 
 
 def create_logger(log_dir: Optional[str] = None,
@@ -69,6 +70,17 @@ class MetricLogger:
         if self._wandb is not None:
             self._wandb.log(metrics, step=step)
 
+    def log_media(self, step: int, path: str, key: str = "samples"):
+        """Mirror a vis file to wandb when it is on: ``wandb.Video`` for an
+        animated file (``.gif``, ``.mp4``, ``.webm``), ``wandb.Image``
+        otherwise; without wandb nothing (the file is the artifact)."""
+        if self._wandb is None:
+            return
+        media = (self._wandb.Video(path)
+                 if path.endswith((".gif", ".mp4", ".webm"))
+                 else self._wandb.Image(path))
+        self._wandb.log({key: media}, step=step)
+
     def close(self):
         self._fh.close()
 
@@ -107,3 +119,26 @@ def write_video_grid(videos: np.ndarray, path: str, fps: int = 4) -> str:
     frames[0].save(path, save_all=True, append_images=frames[1:],
                    duration=max(int(1000 / fps), 1), loop=0)
     return path
+
+
+def pos_embed_similarity_grid(pos_embed: np.ndarray, img_dim: int,
+                              anchors: int = 16) -> np.ndarray:
+    """Cosine-similarity maps of a learned position table: for a grid of
+    anchor tokens, the similarity of the anchor's embedding to every
+    token's, on the (img_dim, img_dim) token grid.
+
+    pos_embed: (L, D) with L == img_dim**2 (a leading length-1 axis is
+    squeezed).  Returns an (H', W', 3) uint8 grid image of ``anchors``
+    maps (``array_to_image_grid`` of the maps in [-1, 1])."""
+    pe = np.asarray(pos_embed, np.float32)
+    if pe.ndim == 3 and pe.shape[0] == 1:
+        pe = pe[0]
+    L, _ = pe.shape
+    if L != img_dim * img_dim:
+        raise ValueError(f"pos_embed length {L} != {img_dim}^2")
+    pe = pe / np.maximum(np.linalg.norm(pe, axis=-1, keepdims=True), 1e-8)
+    side = int(np.ceil(np.sqrt(anchors)))
+    coords = np.linspace(0, img_dim - 1, side).round().astype(int)
+    maps = [(pe @ pe[r * img_dim + c]).reshape(img_dim, img_dim)
+            for r in coords for c in coords]
+    return array_to_image_grid(np.stack(maps)[:, None])
