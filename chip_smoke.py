@@ -225,7 +225,26 @@ Phases, each of which fails loudly (non-zero exit, no result line):
 41. convert   -- the flagship's random weights as a reference-layout
                  ``.pt`` through ``cli.convert`` on the card, then one
                  ``cli.train ckpt=`` step from the step-0 checkpoint: 48 K1,
-                 24 K2, a strict load.
+                 24 K2, a strict load;
+42. scan modes -- (after the LM) K1 and K2 with grouped B / C, (batch, L,
+                 G, N), at the flagship shape in bf16 with the fused gate
+                 for G 2 and 4, and at the edges (G 32: 48 channels a
+                 group, tail blocks; a group's B / C 17 elements apart;
+                 d_state 64; mixed rank; B / C strided as slices of an
+                 x_dbl), and without softplus (dt = delta + bias) at the
+                 flagship: each against its plain version under the
+                 kernel phases' gates, one K1 and one K2 launch a call, K2
+                 bit-equal twice; their times beside the plain versions'
+                 and the bounds.  The torch backends: ``chunked`` at the
+                 flagship shape, real and complex64, ``auto`` at d_state
+                 512 (to ``chunked``) and static B / C (``auto``: to
+                 ``assoc``), forward and every gradient against the plain
+                 versions, no K1 / K2 launch, timed beside K1 / K2; then
+                 ``cli.train`` on the flagship with
+                 ``model.params.scan_backend=chunked`` and through K1 / K2,
+                 4 steps each from one checkpoint with open adaLN gates
+                 (through ``cli.convert``): 0 K1 / K2 against 48 / 24 a
+                 step, the losses against each other, steps/s.
 
 Every count is set to 0 just before its path runs and read just after; the
 plain versions must run 0 times on every path.
@@ -336,6 +355,21 @@ TOL_PIPE_OUT = 1e-5
 STEPS, DEPTH, N_BATCHES, BATCH = 50, 24, 2, 16
 TRAIN_STEPS = 8
 DOPRI5_BATCH = LIK_BATCH = 4
+# the scan modes phase: grouped B / C (G groups of D / G channels) in K1 /
+# K2 at the flagship shape, and the torch backends' shapes (d_state 512 is
+# past the kernels' 256, so auto sends it to the chunked backend)
+MODES_GROUPS = (2, 4)
+WIDE_STATE = dict(batch=2, L=1024, D=1536, N=512)
+STATIC_BC = dict(batch=4, L=1024, D=1536, N=16)
+CHUNKED_STEPS = 4
+# the chunked and associative backends against the plain sequential
+# versions, fp32, per output as max |err| / max |ref|: a log-step scan in
+# chunks against a step-by-step one differ in rounding order only
+TOL_TORCH_SCAN = 1e-4
+# the flagship trained through the chunked backend against the same
+# checkpoint and seed through K1 / K2, relative to max |loss|: the bf16
+# model rounds the two scans' outputs apart, not by 1%
+TOL_CHUNKED_LOSS = 1e-2
 # the video ZigMa 3d_zigzag8sst_b2 as UCF101 trains it (16 frames, 101
 # classes, CFG label drop 0.1), at batch 4 (UCF101's is 20)
 VIDEO_ARGS = ["model=3d_zigzag8sst_b2", "data=synthetic",
@@ -486,13 +520,17 @@ def cuda_ms(fn, reps, groups=5):
     return statistics.median(times)
 
 
-def scan_inputs(gen, batch, L, D, N, dtype, big_dt=False, long_memory=False):
+def scan_inputs(gen, batch, L, D, N, dtype, big_dt=False, long_memory=False,
+                groups=1, softplus=True, mixed=False):
     """Scan inputs from ``gen``: dt = softplus(0.5 randn + 0.1 randn) and
     A = -exp(0.5 randn), decays near 0.5 and a short memory; or, with
     ``long_memory``, the flagship's own init (``models/mamba.py``): bias the
     inverse softplus of a dt log-uniform in [0.001, 0.1], delta 0.1 randn
     around it and A = -(1 ... N), so decays sit near 0.999 and a state
-    remembers about a thousand steps."""
+    remembers about a thousand steps.  With ``groups`` > 1, B and C are
+    grouped (batch, L, G, N) (with ``mixed`` B stays (batch, L, N), shared
+    by every group); without ``softplus`` delta is softplus(delta + bias) -
+    bias, so that dt = delta + bias keeps the same values."""
     import torch
     dev = "cuda"
     r = lambda *s: torch.randn(s, generator=gen, device=dev)
@@ -507,9 +545,17 @@ def scan_inputs(gen, batch, L, D, N, dtype, big_dt=False, long_memory=False):
         dt = torch.exp(torch.rand(D, generator=gen, device=dev)
                        * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
         bias = dt + torch.log(-torch.expm1(-dt))
-    return dict(u=u.to(dtype), delta=delta.to(dtype), A=A, B=B.to(dtype),
-                C=C.to(dtype), bias=bias, Dskip=r(D),
-                z=r(batch, L, D).to(dtype), x0=r(batch, N, D))
+    d = dict(u=u.to(dtype), delta=delta.to(dtype), A=A, B=B.to(dtype),
+             C=C.to(dtype), bias=bias, Dskip=r(D),
+             z=r(batch, L, D).to(dtype), x0=r(batch, N, D))
+    if groups > 1:
+        d["C"] = r(batch, L, groups, N).to(dtype)
+        if not mixed:
+            d["B"] = r(batch, L, groups, N).to(dtype)
+    if not softplus:
+        d["delta"] = (torch.nn.functional.softplus(delta + bias)
+                      - bias).to(dtype)
+    return d
 
 
 def rel_err(a, b):
@@ -525,21 +571,30 @@ def excess(got, ref, ulp):
 
 
 def check_kernel_case(name, gen, batch, L, D, N, dtype, fused, with_x0,
-                      big_dt=False, long_memory=False, strided=False):
+                      big_dt=False, long_memory=False, strided=False,
+                      groups=1, softplus=True, mixed=False):
+    """K1 against selective_scan_ref on all three outputs (one launch),
+    inputs from ``scan_inputs``; ``strided``: z, B and C as the model
+    passes them."""
     import torch
     from zigma_tpu_torch.ops.scan_cuda import selective_scan_fwd_cuda
     from zigma_tpu_torch.ops.selective_scan import selective_scan_ref
-    d = scan_inputs(gen, batch, L, D, N, dtype, big_dt, long_memory)
+    d = scan_inputs(gen, batch, L, D, N, dtype, big_dt, long_memory, groups,
+                    softplus, mixed)
     if strided:
         d = strided_like_the_model(d)
     Dk, zk = (d["Dskip"], d["z"]) if fused else (None, None)
     x0 = d["x0"] if with_x0 else None
     with torch.inference_mode():
+        k1 = read_counts()[0]
         got = selective_scan_fwd_cuda(d["u"], d["delta"], d["A"], d["B"],
-                                      d["C"], d["bias"], Dk, zk, x0)
+                                      d["C"], d["bias"], Dk, zk, x0,
+                                      delta_softplus=softplus)
         torch.cuda.synchronize()
+        if read_counts()[0] != k1 + 1:
+            fail(f"{name}: K1 counted {read_counts()[0] - k1} launches a call")
         ref = selective_scan_ref(d["u"], d["delta"], d["A"], d["B"], d["C"],
-                                 Dk, zk, d["bias"], True, x0)
+                                 Dk, zk, d["bias"], softplus, x0)
         torch.cuda.synchronize()
     ulp_y = BF16_ULP if dtype == torch.bfloat16 else 0.0
     errs = {}
@@ -580,40 +635,44 @@ def least_time(n_bytes, flops, transc):
     return bound_ms, bound_by, how
 
 
-def k1_work(batch, L, D, N, item, carries=False, fused=True, seeded=False):
+def k1_work(batch, L, D, N, item, carries=False, fused=True, seeded=False,
+            groups=1, softplus=True):
     """(bytes, fp32 flops, transcendentals) of K1's function, fused gate
-    unless ``fused`` is false: each input read once (u, delta, z; B, C; A,
-    bias, D; the seed x0 with ``seeded``), each output written once (y;
-    x_last in fp32; the chunk starts with ``carries``).  Operations: the
-    JAX kernel's cost estimate of fp32 FMA work, and on the
-    special-function units one exp per state plus softplus's exp and log1p
-    and (fused) the gate's exp per channel."""
+    unless ``fused`` is false: each input read once (u, delta, z; B, C, of
+    ``groups`` groups; A, bias, D; the seed x0 with ``seeded``), each output
+    written once (y; x_last in fp32; the chunk starts with ``carries``).
+    Operations: the JAX kernel's cost estimate of fp32 FMA work, and on the
+    special-function units one exp per state plus (with ``softplus``)
+    softplus's exp and log1p and (fused) the gate's exp per channel."""
     n_bytes = ((4 if fused else 3) * batch * L * D * item  # u, delta, z; y
-               + 2 * batch * L * N * item        # B, C
+               + 2 * batch * L * groups * N * item  # B, C
                + D * N * 4 + (2 if fused else 1) * D * 4  # A, bias, D
                + (2 if seeded else 1) * batch * N * D * 4)  # x0, x_last
     if carries:
         n_bytes += batch * -(-L // 128) * N * D * 4
+    per_channel = (2 if softplus else 0) + (1 if fused else 0)
     return (n_bytes, 9 * batch * L * D * N,
-            batch * L * D * N + (3 if fused else 2) * batch * L * D)
+            batch * L * D * N + per_channel * batch * L * D)
 
 
-def k2_work(batch, L, D, N, item, fused=True, g_last=False):
+def k2_work(batch, L, D, N, item, fused=True, g_last=False, groups=1,
+            softplus=True):
     """(bytes, fp32 flops, transcendentals) of K2's function as the training
-    path calls it: each input read once (u, delta, z, gy; B, C; the chunk
-    starts; A, bias, D; with ``g_last`` the final state's cotangent), each
-    output written once (du, ddelta, dz; dB, dC; dA, dbias, dD; dx0);
-    without the fused gate no z, dz, D or dD.  Operations: the JAX kernel's
-    cost estimate (25 B L D N), and one exp per state and step plus
-    softplus's exp and log1p, its sigmoid and (fused) the gate's sigmoid
-    per channel and step."""
+    path calls it: each input read once (u, delta, z, gy; B, C, of
+    ``groups`` groups; the chunk starts; A, bias, D; with ``g_last`` the
+    final state's cotangent), each output written once (du, ddelta, dz; dB,
+    dC; dA, dbias, dD; dx0); without the fused gate no z, dz, D or dD.
+    Operations: the JAX kernel's cost estimate (25 B L D N), and one exp
+    per state and step plus (with ``softplus``) softplus's exp and log1p
+    and its sigmoid and (fused) the gate's sigmoid per channel and step."""
     n_bytes = ((7 if fused else 5) * batch * L * D * item  # in and out
-               + 4 * batch * L * N * item        # B, C in; dB, dC out
+               + 4 * batch * L * groups * N * item  # B, C in; dB, dC out
                + batch * -(-L // 128) * N * D * 4  # chunk-start states
                + 2 * (D * N * 4 + (2 if fused else 1) * D * 4)  # A, bias, D
                + (2 if g_last else 1) * batch * N * D * 4)  # g_last, dx0
+    per_channel = (3 if softplus else 0) + (1 if fused else 0)
     return (n_bytes, 25 * batch * L * D * N,
-            batch * L * D * N + (4 if fused else 3) * batch * L * D)
+            batch * L * D * N + per_channel * batch * L * D)
 
 
 def truth_f64(d, device="cuda", seeded=False, fused=True):
@@ -828,33 +887,37 @@ def kernel_phase(gen):
 
 def strided_like_the_model(d, R=49):
     """``d`` with z a slice of an xz-like (batch, L, 2D + 1) tensor and B, C
-    slices of an x_dbl-like (batch, L, R + 2N) one at offset R: with R odd
-    the rows of all three are only 2-byte aligned in bf16 (4 in fp32), so
+    slices of an x_dbl-like (batch, L, R + 2 G N) one at offset R (G N the
+    width of B and of C, grouped or not): with R odd the rows of all three
+    (and a group's slice) are only 2-byte aligned in bf16 (4 in fp32), so
     the narrow copies of the kernels' staging run."""
     import torch
     batch, L, D = d["z"].shape
-    N = d["B"].shape[2]
-    x_dbl = torch.zeros((batch, L, R + 2 * N), dtype=d["B"].dtype,
-                        device=d["B"].device)
-    x_dbl[..., R:R + N], x_dbl[..., R + N:] = d["B"], d["C"]
+    B, C = d["B"].flatten(2), d["C"].flatten(2)
+    W = B.shape[2]
+    x_dbl = torch.zeros((batch, L, R + 2 * W), dtype=B.dtype, device=B.device)
+    x_dbl[..., R:R + W], x_dbl[..., R + W:] = B, C
     xz = torch.zeros((batch, L, 2 * D + 1), dtype=d["z"].dtype,
                      device=d["z"].device)
     xz[..., D + 1:] = d["z"]
-    return dict(d, B=x_dbl[..., R:R + N], C=x_dbl[..., R + N:],
-                z=xz[..., D + 1:])
+    return dict(d, B=x_dbl[..., R:R + W].view(d["B"].shape),
+                C=x_dbl[..., R + W:].view(d["C"].shape), z=xz[..., D + 1:])
 
 
 def check_bwd_case(name, gen, batch, L, D, N, dtype, fused, big_dt=False,
-                   long_memory=False, strided=False, tol_fp32=TOL_BWD):
+                   long_memory=False, strided=False, tol_fp32=TOL_BWD,
+                   groups=1, softplus=True, mixed=False):
     """K2 against selective_scan_bwd_ref on every output, from the chunk
     starts K1 wrote, with a final-state cotangent, within ``tol_fp32`` of
-    max |ref| (after one bf16 ulp on bf16 outputs); two launches
-    bit-equal.  Prints each output's max abs error and the worst excess."""
+    max |ref| (after one bf16 ulp on bf16 outputs); one launch a call, two
+    launches bit-equal; inputs from ``scan_inputs``.  Prints each output's
+    max abs error and the worst excess."""
     import torch
     from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
                                                selective_scan_fwd_cuda)
     from zigma_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
-    d = scan_inputs(gen, batch, L, D, N, dtype, big_dt, long_memory)
+    d = scan_inputs(gen, batch, L, D, N, dtype, big_dt, long_memory, groups,
+                    softplus, mixed)
     if strided:
         d = strided_like_the_model(d)
     d["gy"] = torch.randn(batch, L, D, generator=gen, device="cuda").to(dtype)
@@ -862,10 +925,15 @@ def check_bwd_case(name, gen, batch, L, D, N, dtype, fused, big_dt=False,
     Dk, zk = (d["Dskip"], d["z"]) if fused else (None, None)
     with torch.no_grad():
         _, carries, _ = selective_scan_fwd_cuda(
-            d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"], Dk, zk)
+            d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"], Dk, zk,
+            delta_softplus=softplus)
         args = (d["u"], d["delta"], d["bias"], d["A"], d["B"], d["C"],
-                carries, d["gy"], d["g_last"], Dk, zk)
+                carries, d["gy"], d["g_last"], Dk, zk, softplus)
+        k2 = read_counts()[1]
         got = selective_scan_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        if read_counts()[1] != k2 + 1:
+            fail(f"{name}: K2 counted {read_counts()[1] - k2} launches a call")
         again = selective_scan_bwd_cuda(*args)
         torch.cuda.synchronize()
         ref = selective_scan_bwd_ref(*args)
@@ -3750,6 +3818,248 @@ def convert_phase(gen, tmp):
     return dict(k1=counts[0], k2=counts[1], seconds=conv_s)
 
 
+def modes_kernel_phase(gen):
+    """K1 / K2 with grouped B / C and without softplus: each case against
+    the plain versions (``check_kernel_case`` / ``check_bwd_case``: one
+    launch a call, K2 bit-equal twice), then the times at the flagship shape
+    (bf16, fused gate) beside the plain versions' and the bounds."""
+    import torch
+    from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+                                               selective_scan_fwd_cuda)
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+    f, bf = torch.float32, torch.bfloat16
+    fs = FLAGSHIP
+    small = dict(batch=2, L=300, D=1536, N=16)
+    cases = [
+        *((f"G={G} flagship bf16 fused", fs, G, bf, True, True, False, False)
+          for G in MODES_GROUPS),
+        ("no softplus flagship bf16 fused", fs, 1, bf, True, False, False,
+         False),
+        # a group's tail block: H = 48 channels against K1's 64 and K2's 32
+        # a block
+        ("G=32 (H=48) L=300 bf16 fused", small, 32, bf, True, True, False,
+         False),
+        ("G=32 (H=48) L=300 fp32 unfused", small, 32, f, False, True, False,
+         False),
+        # a group's B / C 17 elements apart: copies narrower than a row's
+        ("G=2 N=17 L=129 D=100 bf16 fused", dict(batch=2, L=129, D=100,
+                                                 N=17), 2, bf, True, True,
+         False, False),
+        ("G=2 N=17 L=129 D=100 fp32 unfused", dict(batch=2, L=129, D=100,
+                                                   N=17), 2, f, False, True,
+         False, False),
+        ("G=4 N=64 L=1000 D=256 fp32 fused", dict(batch=2, L=1000, D=256,
+                                                  N=64), 4, f, True, True,
+         False, False),
+        ("G=4 mixed rank L=300 bf16 fused", small, 4, bf, True, True, True,
+         False),
+        ("G=4 strided L=300 bf16 fused", small, 4, bf, True, True, False,
+         True),
+        ("no softplus G=4 L=300 fp32 unfused", small, 4, f, False, False,
+         False, False),
+    ]
+    timed = {}
+    for name, shp, G, dtype, fused, softplus, mixed, strided in cases:
+        kw = dict(dtype=dtype, fused=fused, strided=strided, groups=G,
+                  softplus=softplus, mixed=mixed)
+        _, errs = check_kernel_case(f"K1 {name}", gen, **shp, with_x0=True,
+                                    **kw)
+        d, carries, errs2 = check_bwd_case(f"K2 {name}", gen, **shp, **kw)
+        if shp is fs:
+            timed[name] = (d, carries, G, softplus, errs["y"],
+                           max(errs2.values()))
+    rows = {}
+    B_, L, D, N = fs.values()
+    for name, (d, carries, G, softplus, y_err, bwd_err) in timed.items():
+        fwd = (d["u"], d["delta"], d["A"], d["B"], d["C"])
+        bwd = (d["u"], d["delta"], d["bias"], *fwd[2:], carries, d["gy"],
+               None, d["Dskip"], d["z"])
+        tag = "no_softplus" if not softplus else f"G{G}"
+        with torch.no_grad():
+            for kernel, call, plain, work, err in (
+                    ("K1", lambda: selective_scan_fwd_cuda(
+                        *fwd, d["bias"], d["Dskip"], d["z"],
+                        return_carries=False, delta_softplus=softplus),
+                     lambda: selective_scan_ref(*fwd, d["Dskip"], d["z"],
+                                                d["bias"], softplus),
+                     k1_work(B_, L, D, N, 2, groups=G, softplus=softplus),
+                     y_err),
+                    ("K2", lambda: selective_scan_bwd_cuda(
+                        *bwd, delta_softplus=softplus),
+                     lambda: selective_scan_bwd_ref(
+                         *bwd, delta_softplus=softplus),
+                     k2_work(B_, L, D, N, 2, groups=G, softplus=softplus),
+                     bwd_err)):
+                reset_counts()
+                ms = cuda_ms(call, reps=20 if kernel == "K1" else 10)
+                plain_ms = cuda_ms(plain, reps=1, groups=3)
+                bound_ms, bound_by, how = least_time(*work)
+                rows[f"{kernel} {tag}"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=err, launches_a_call=1)
+                print(f"{kernel} {name} at {tuple(fs.values())}: {ms:.4f} ms "
+                      f"({ms / bound_ms:.2f}x the bound {bound_ms:.4f} ms by "
+                      f"{bound_by}: {how}); plain {plain_ms:.3f} ms",
+                      flush=True)
+    return rows
+
+
+def torch_backend_case(name, gen, backend, shp, complex_=False,
+                       static=False, chunk=128):
+    """``selective_scan`` (fp32, D and z, ``delta_bias``, softplus) under
+    autograd through ``backend`` against the plain sequential versions on
+    the same inputs: y and every gradient within TOL_TORCH_SCAN of max
+    |ref|.  The real plain gradient is ``selective_scan_bwd_ref``'s from the
+    plain forward's chunk starts; a complex one is torch autograd's through
+    ``selective_scan_ref``.  Exactly one call of the backend, and no K1 /
+    K2 launch or plain call in it.  Returns (inputs, the call's ms without
+    a gradient and with one, worst error)."""
+    import torch
+    from zigma_tpu_torch.ops.scan_chunked import (selective_scan_assoc,
+                                                  selective_scan_chunked)
+    from zigma_tpu_torch.ops.selective_scan import (selective_scan,
+                                                    selective_scan_bwd_ref,
+                                                    selective_scan_ref)
+    batch, L, D, N = shp.values()
+    d = scan_inputs(gen, batch, L, D, N, torch.float32)
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    if complex_:
+        d["A"] = torch.complex(d["A"], r(D, N))
+        d["B"] = torch.complex(d["B"], r(batch, L, N))
+        d["C"] = torch.complex(d["C"], r(batch, L, N))
+    if static:
+        d["B"], d["C"] = r(D, N), r(D, N)
+    gy = r(batch, L, D)
+    names = ("u", "delta", "A", "B", "C", "Dskip", "z", "bias")
+    leaves = [d[k].detach().requires_grad_() for k in names]
+    counter = {"chunked": selective_scan_chunked,
+               "assoc": selective_scan_assoc}[backend]
+
+    def run(grad):
+        ls = leaves if grad else [t.detach() for t in leaves]
+        out = selective_scan(*ls[:5], ls[5], ls[6], ls[7], True,
+                             backend="auto" if backend == "assoc" or
+                             N > 256 else backend, chunk=chunk)
+        if grad:
+            return out, torch.autograd.grad(out, leaves, gy)
+        return out, None
+
+    reset_counts()
+    calls = counter.calls
+    y, grads = run(True)
+    torch.cuda.synchronize()
+    if read_counts() != (0, 0, 0, 0) or counter.calls != calls + 1:
+        fail(f"{name}: K1 / K2 / plain counts {read_counts()}, "
+             f"{counter.calls - calls} {backend} calls: expected 0 and 1")
+    if complex_:
+        ref_leaves = [t.detach().requires_grad_() for t in leaves]
+        y_ref, _, _ = selective_scan_ref(*ref_leaves[:5], ref_leaves[5],
+                                         ref_leaves[6], ref_leaves[7], True)
+        ref_grads = torch.autograd.grad(y_ref, ref_leaves, gy)
+    else:
+        with torch.no_grad():
+            y_ref, carries, _ = selective_scan_ref(
+                *(d[k] for k in names[:5]), d["Dskip"], d["z"], d["bias"],
+                True)
+            g = selective_scan_bwd_ref(
+                d["u"], d["delta"], d["bias"], d["A"], d["B"], d["C"],
+                carries, gy, None, d["Dskip"], d["z"])
+        ref_grads = (g[0], g[1], g[2], g[3], g[4], g[8], g[7], g[5])
+    torch.cuda.synchronize()
+    errs = {"y": excess(y, y_ref, 0.0)}
+    for what, a, b in zip(names, grads, ref_grads):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{name}: d{what} {tuple(a.shape)} {a.dtype} vs "
+                 f"{tuple(b.shape)} {b.dtype}")
+        errs[f"d{what}"] = ((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30)).item()
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    print(f"{name:38s} one {backend} call, 0 K1 / K2, vs plain of max |ref|: "
+          + " ".join(f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    if not worst[1] <= TOL_TORCH_SCAN:
+        fail(f"{name}: {worst[0]} {worst[1]:.3e} of max |ref| > "
+             f"{TOL_TORCH_SCAN}")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: run(False), reps=1, groups=3)
+    ms_grad = cuda_ms(lambda: run(True), reps=1, groups=3)
+    del leaves, grads, ref_grads
+    torch.cuda.empty_cache()
+    return d, ms, ms_grad, worst[1]
+
+
+def torch_backends_phase(gen, k1_ms, k2_ms):
+    """The chunked backend at the flagship shape, real and complex64; auto
+    at d_state 512 (to chunked); static B / C (auto: assoc); each against
+    the plain versions, timed beside K1 / K2 at the flagship."""
+    rows = {}
+    for name, backend, shp, cplx, static in (
+            ("chunked flagship fp32", "chunked", FLAGSHIP, False, False),
+            ("chunked flagship complex64", "chunked", FLAGSHIP, True, False),
+            ("auto N=512 (chunked) fp32", "chunked", WIDE_STATE, False,
+             False),
+            ("static B/C (assoc) fp32", "assoc", STATIC_BC, False, True)):
+        _, ms, ms_grad, err = torch_backend_case(name, gen, backend, shp,
+                                                 cplx, static)
+        rows[name] = dict(shape=tuple(shp.values()), ms=ms,
+                          ms_with_grad=ms_grad, max_rel_err=err)
+        print(f"{name} at {tuple(shp.values())}: {ms:.3f} ms forward, "
+              f"{ms_grad:.3f} ms forward + backward"
+              + (f" (K1 {k1_ms:.4f} ms, K1 + K2 {k1_ms + k2_ms:.4f} ms at "
+                 f"the flagship bf16)" if shp is FLAGSHIP else ""),
+              flush=True)
+    return rows
+
+
+def chunked_train_phase(gen, tr, tmp):
+    """``cli.train`` on the flagship with ``model.params.scan_backend=
+    chunked``, batch 16, CHUNKED_STEPS steps, and the same through K1 / K2,
+    both from one step-0 checkpoint whose weights (the flagship's init plus
+    0.02 of normal noise, through ``cli.convert``) open every adaLN gate, so
+    that the scan reaches the loss from the first step: no K1 / K2 launch
+    through chunked, exactly 48 / 24 a step through the kernels, the losses
+    within TOL_CHUNKED_LOSS of each other (relative), steps/s beside each
+    other and the train phase's."""
+    import torch
+    from zigma_tpu_torch.cli import convert as convert_cli
+    from zigma_tpu_torch.cli import sample as sample_cli
+    args = ["model=zigzag8_b1_pe2", "data=synthetic"]
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 args)
+    model = sample_cli.build_model(cfg, device="cuda", generator=gen)
+    with torch.no_grad():
+        sd = {f"module.{k}": (v + 0.02 * torch.randn(
+            v.shape, generator=gen, device="cuda")).cpu()
+              for k, v in model.state_dict().items()}
+    del model
+    pt = os.path.join(tmp, "open_gates.pt")
+    torch.save({"model": sd, "ema": sd}, pt)
+    ckpt = convert_cli.main(["--ckpt", pt, "--out",
+                             os.path.join(tmp, "converted"), *args])
+    runs = {}
+    for name, extra, k1, k2 in (
+            ("chunked scan", ["model.params.scan_backend=chunked"], 0, 0),
+            ("K1 / K2 scan", [], 2 * DEPTH, DEPTH)):
+        _, _, runs[name] = train_cli_phase(
+            name, [*args, f"ckpt={ckpt}", *extra], BATCH, k1, k2,
+            os.path.join(tmp, name.split()[0].replace("/", "")),
+            steps=CHUNKED_STEPS)
+    ch, kk = runs["chunked scan"], runs["K1 / K2 scan"]
+    rel = (max(abs(a - b) for a, b in zip(ch["losses"], kk["losses"]))
+           / max(map(abs, kk["losses"])))
+    print(f"chunked scan training from open gates: losses "
+          f"{[round(v, 5) for v in ch['losses']]} against K1 / K2's "
+          f"{[round(v, 5) for v in kk['losses']]}, within {rel:.3e} "
+          f"(relative, limit {TOL_CHUNKED_LOSS}); {ch['steps_per_s']:.4f} "
+          f"steps/s against {kk['steps_per_s']:.4f} (the train phase "
+          f"{tr['steps_per_s']:.4f})", flush=True)
+    if not rel <= TOL_CHUNKED_LOSS:
+        fail(f"chunked scan training: losses {ch['losses']} against "
+             f"{kk['losses']}")
+    return dict(ch, max_rel_loss_diff=rel, kernel_steps_per_s=kk[
+        "steps_per_s"])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3785,7 +4095,7 @@ def main():
                           r"(selective_scan_\w{3}_kernel)I(\w+?)EvNS", line)
             if m:  # the instance: element type and template integers
                 dtype = "bf16" if "bfloat16" in m.group(2) else "fp32"
-                ints = re.findall(r"Li(\d+)E", m.group(2))
+                ints = re.findall(r"L[ib](\d+)E", m.group(2))
                 print(f"    {m.group(1)}<{', '.join([dtype, *ints])}>")
             elif "registers" in line or "spill" in line:
                 print("   ", line.strip())
@@ -3956,6 +4266,12 @@ def main():
     phase("LM (models.lm at state-spaces/mamba-130m's shape: prefill "
           "through K1, cached decode)")
     lm = lm_phase(gen)
+    phase("scan modes (K1 / K2 with grouped B/C and without softplus; the "
+          "chunked and associative backends; cli.train through chunked)")
+    km = modes_kernel_phase(gen)
+    tb = torch_backends_phase(gen, k1["ms"], k2["ms"])
+    with ram_dir() as rtmp:
+        ct = chunked_train_phase(gen, tr, rtmp)
 
     kernels = [
         dict(name="selective_scan_fwd", route="cuda",
@@ -3992,7 +4308,9 @@ def main():
                                **{f"train_remat_{k}": v["k1"]
                                   for k, v in rm.items()},
                                "train_pipeline_1x4": pl["k1"],
-                               "train_from_converted": cv["k1"]},
+                               "train_from_converted": cv["k1"],
+                               "scan_modes_call": 1,
+                               "train_chunked_backend": ct["k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
@@ -4002,7 +4320,9 @@ def main():
              seq_parallel_shard_shape={
                  k: v for k, v in sp["shard_rows"].items()
                  if k.startswith("K1")},
-             pipeline_microbatch_shape=kmb["K1"]),
+             pipeline_microbatch_shape=kmb["K1"],
+             modes={k.split(" ", 1)[1]: v for k, v in km.items()
+                    if k.startswith("K1")}),
         dict(name="selective_scan_bwd", route="cuda",
              source="zigma_tpu_torch/csrc/selective_scan_bwd.cu",
              replaces="zigma_tpu/ops/scan_pallas.py:418",
@@ -4025,7 +4345,9 @@ def main():
                                **{f"train_remat_{k}": v["k2"]
                                   for k, v in rm.items()},
                                "train_pipeline_1x4": pl["k2"],
-                               "train_from_converted": cv["k2"]},
+                               "train_from_converted": cv["k2"],
+                               "scan_modes_call": 1,
+                               "train_chunked_backend": ct["k2"]},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
@@ -4033,7 +4355,9 @@ def main():
              seq_parallel_shard_shape={
                  k: v for k, v in sp["shard_rows"].items()
                  if k.startswith("K2")},
-             pipeline_microbatch_shape=kmb["K2"])]
+             pipeline_microbatch_shape=kmb["K2"],
+             modes={k.split(" ", 1)[1]: v for k, v in km.items()
+                    if k.startswith("K2")})]
     print(f"\nflagship sampling {e2e['images_per_s']:.4f} images/s, forward "
           f"{e2e['forward_ms']:.3f} ms; training {tr['steps_per_s']:.4f} "
           f"steps/s, {tr['images_per_s']:.3f} images/s, peak "
@@ -4090,7 +4414,12 @@ def main():
           f"pipeline 1 x {PIPE_MICROBATCHES} {pl['steps_per_s']:.4f} steps/s "
           f"(one process, drop-path 0: {pl['one']['steps_per_s']:.4f}); K1 / "
           f"K2 at the microbatch shape {kmb['K1']['ms']:.4f} / "
-          f"{kmb['K2']['ms']:.4f} ms")
+          f"{kmb['K2']['ms']:.4f} ms; "
+          + "; ".join(f"{k} {v['ms']:.4f} ms" for k, v in km.items())
+          + "; " + "; ".join(f"{k} {v['ms']:.3f} / {v['ms_with_grad']:.3f} ms"
+                             for k, v in tb.items())
+          + f" (forward / with the backward); chunked-scan training "
+          f"{ct['steps_per_s']:.4f} steps/s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

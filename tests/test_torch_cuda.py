@@ -169,15 +169,25 @@ def test_cuda_tensor_dispatches_to_kernel(gen):
                        d["z"], d["bias"], delta_softplus=True)
     assert scan_cuda.selective_scan_fwd_cuda.launches == launches + 1
     assert selective_scan_ref.calls == calls
-    with pytest.raises(NotImplementedError, match="later slice"):
-        selective_scan(d["u"], d["delta"], d["A"], d["B"], d["C"], d["Dskip"],
-                       d["z"], d["bias"], delta_softplus=False)
+    # without softplus too (dt = delta + bias, delta positive so that the
+    # decays stay below 1): K1, against the plain version
+    delta = d["delta"].abs() + 0.5
+    with torch.inference_mode():
+        got = selective_scan(d["u"], delta, d["A"], d["B"], d["C"],
+                             d["Dskip"], d["z"], d["bias"],
+                             delta_softplus=False)
+        ref = selective_scan(d["u"], delta, d["A"], d["B"], d["C"],
+                             d["Dskip"], d["z"], d["bias"],
+                             delta_softplus=False, backend="ref")
+    assert scan_cuda.selective_scan_fwd_cuda.launches == launches + 2
+    assert selective_scan_ref.calls == calls + 1
+    assert _rel(got, ref, BF16_ULP) <= TOL_FP32
 
 
 def test_kernel_refuses_what_it_does_not_take(gen):
     d = _inputs(gen, 1, 8, 8, 257, torch.float32)
     args = (d["u"], d["delta"], d["A"], d["B"], d["C"], d["bias"])
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="chunked"):
         scan_cuda.selective_scan_fwd_cuda(*args)
     d = _inputs(gen, 1, 8, 8, 4, torch.float32)
     with pytest.raises(NotImplementedError, match="does not record a gradient"):
@@ -253,6 +263,91 @@ def _check_bwd(dtype, fused, got, again, ref, tol_fp32=TOL_BWD):
         tol = (TOL_DBIAS_BF16 if name == "dbias" and dtype == torch.bfloat16
                else tol_fp32)
         assert _rel(g, r, ulp) <= tol, name
+
+
+def _grouped(gen, d, G, mixed=False):
+    """d with B and C grouped (batch, L, G, N); with ``mixed`` B stays
+    (batch, L, N), shared by every group."""
+    batch, L, N = d["B"].shape
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda").to(
+        d["B"].dtype)
+    return dict(d, B=d["B"] if mixed else r(batch, L, G, N),
+                C=r(batch, L, G, N))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softplus", [True, False])
+@pytest.mark.parametrize("G,L,D,N,mixed", [
+    (2, 300, 96, 16, False), (4, 129, 64, 64, False), (2, 40, 100, 17, False),
+    # a group's tail block (H = 48 against 64 and 32 channels a block)
+    (32, 50, 1536, 16, False), (4, 77, 96, 8, True)])
+def test_grouped_and_no_softplus_kernels_match_plain(gen, dtype, softplus, G,
+                                                     L, D, N, mixed):
+    """K1 and K2 with grouped B / C (batch, L, G, N), and without softplus
+    (delta positive: dt = delta + bias), against their plain versions, one
+    launch each, K2 bit-equal twice."""
+    d = _grouped(gen, _inputs(gen, 2, L, D, N, dtype), G, mixed)
+    if not softplus:
+        d["delta"] = d["delta"].abs() + 0.5
+    d["gy"] = torch.randn(2, L, D, generator=gen, device="cuda").to(dtype)
+    fwd = (d["u"], d["delta"], d["A"], d["B"], d["C"])
+    k1, k2 = (scan_cuda.selective_scan_fwd_cuda.launches,
+              scan_cuda.selective_scan_bwd_cuda.launches)
+    with torch.no_grad():
+        got = scan_cuda.selective_scan_fwd_cuda(
+            *fwd, d["bias"], d["Dskip"], d["z"], d["x0"],
+            delta_softplus=softplus)
+        ref = selective_scan_ref(*fwd, d["Dskip"], d["z"], d["bias"],
+                                 softplus, d["x0"])
+        args = (d["u"], d["delta"], d["bias"], *fwd[2:], got[1], d["gy"],
+                d["x0"], d["Dskip"], d["z"], softplus)
+        bwd = scan_cuda.selective_scan_bwd_cuda(*args)
+        again = scan_cuda.selective_scan_bwd_cuda(*args)
+        ref_b = selective_scan_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert scan_cuda.selective_scan_fwd_cuda.launches == k1 + 1
+    assert scan_cuda.selective_scan_bwd_cuda.launches == k2 + 2
+    ulp = BF16_ULP if dtype == torch.bfloat16 else 0.0
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rel(g, r, ulp if g.dtype == torch.bfloat16 else 0.0) <= TOL_FP32
+    assert bwd[3].shape == d["B"].shape and bwd[4].shape == d["C"].shape
+    _check_bwd(dtype, True, bwd, again, ref_b)
+
+
+@pytest.mark.parametrize("case", ["complex", "wide_state", "static"])
+def test_auto_torch_backends_on_the_card(gen, case):
+    """``auto`` on CUDA tensors sends complex A and d_state 300 to the
+    chunked backend and static B / C to the associative one: no K1 / K2
+    launch; output and gradients against autograd through the plain
+    forward on the card (fp32, 1e-5 of max)."""
+    from zigma_tpu_torch.ops.scan_chunked import (selective_scan_assoc,
+                                                  selective_scan_chunked)
+    d = _inputs(gen, 2, 150, 32, 300 if case == "wide_state" else 8,
+                torch.float32)
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    if case == "complex":
+        d["A"] = torch.complex(d["A"], r(*d["A"].shape))
+        d["B"] = torch.complex(d["B"], r(*d["B"].shape))
+    if case == "static":
+        d["B"], d["C"] = r(32, 8), r(32, 8)
+    counter = selective_scan_assoc if case == "static" else \
+        selective_scan_chunked
+    names = ("u", "delta", "A", "B", "C", "Dskip", "z", "bias")
+    grads = []
+    for backend in ("auto", "ref"):
+        leaves = [d[k].detach().requires_grad_() for k in names]
+        k1, calls = scan_cuda.selective_scan_fwd_cuda.launches, counter.calls
+        y = selective_scan(*leaves[:5], leaves[5], leaves[6], leaves[7],
+                           True, backend=backend, chunk=32)
+        if backend == "auto":
+            assert counter.calls == calls + 1
+            assert scan_cuda.selective_scan_fwd_cuda.launches == k1
+        grads.append((y, *torch.autograd.grad(y, leaves, d["z"])))
+    for a, b in zip(*grads):
+        if a.is_complex():  # both parts
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        assert _rel(a, b) <= TOL_BWD
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -248,7 +248,23 @@ def test_selective_state_update_steps_are_the_scan():
 
 
 def test_selective_state_update_refuses_complex():
-    d = {k: torch.from_numpy(v) for k, v in _state_inputs("fp32").items()}
-    with pytest.raises(NotImplementedError, match="complex"):
-        selective_state_update(d["state"], d["x"], d["dt"],
-                               d["A"].to(torch.complex64), d["B"], d["C"])
+    """Complex A with real B / C and a real state, which an earlier slice
+    refused, now steps in complex64 (the S4D-complex mode: y = 2 Re<state',
+    C>): y and the complex state against the JAX step, within 1e-6 of max
+    |jax|."""
+    d = _state_inputs("fp32")
+    rng = np.random.default_rng(4)
+    d["A"] = (d["A"] + 1j * rng.standard_normal(d["A"].shape)).astype(
+        np.complex64)
+    y_j, s_j = jax_state_update(*(jnp.asarray(d[k]) for k in (
+        "state", "x", "dt", "A", "B", "C", "D", "z", "dt_bias")),
+        dt_softplus=True)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    y, state = selective_state_update(
+        t["state"], t["x"], t["dt"], t["A"], t["B"], t["C"], t["D"], t["z"],
+        t["dt_bias"], dt_softplus=True)
+    assert state.dtype == torch.complex64 and y.dtype == torch.float32
+    for got, ref in ((y, y_j), (state, s_j)):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape
+        assert np.max(np.abs(got.numpy() - ref)) <= 1e-6 * np.max(np.abs(ref))

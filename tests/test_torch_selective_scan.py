@@ -211,11 +211,27 @@ def test_missing_bias_has_no_gradient_and_cast_params_keep_their_dtype():
 
 @pytest.mark.parametrize("case", ["complex_A", "grouped_BC"])
 def test_later_slice_shapes_raise(case):
+    """The shapes an earlier slice refused now run: complex A on
+    the chunked backend, grouped (batch, L, 1, N) and (batch, L, 2, N) B / C
+    on the plain versions, each against the JAX function on the same
+    inputs (complex: relative 1e-5 of max |JAX|; real: TOL)."""
+    from zigma_tpu.ops.selective_scan import selective_scan as jax_scan
     d = _inputs(6, L=16, D=8, N=4)
-    u, delta, A, B, C = (_t(d[k]) for k in ("u", "delta", "A", "B", "C"))
+    u, delta, A, B, C = (d[k] for k in ("u", "delta", "A", "B", "C"))
     if case == "complex_A":
-        A = A.to(torch.complex64)
+        A = (A + 1j * d["A"][::-1]).astype(np.complex64)
+        groups = [None]
     else:
-        B, C = B[:, :, None], C[:, :, None]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        selective_scan(u, delta, A, B, C)
+        groups = [1, 2]
+    for G in groups:
+        Bg, Cg = B, C
+        if G is not None:
+            Bg = np.stack([B] * G, axis=2) * (1 + np.arange(G))[:, None]
+            Cg = np.stack([C] * G, axis=2)
+        y_j = jax_scan(*(jnp.asarray(a) for a in (u, delta, A, Bg, Cg)),
+                       delta_softplus=True)
+        y = selective_scan(*(_t(a) for a in (u, delta, A, Bg, Cg)),
+                           delta_softplus=True)
+        err = _err(y, y_j)
+        assert err <= (1e-5 * float(np.max(np.abs(np.asarray(y_j))))
+                       if case == "complex_A" else TOL), (G, err)

@@ -14,6 +14,10 @@ the parallelN branches ``scan_b{j}`` -> the reference's ``*_b_list.{j}``
 names (``A_b_log_list.{j}``, ``conv1d_b_list.{j}.weight``, ...).  The label
 table is copied whole, with its null-class row where the model has one.
 
+A conditioned FinalLayer's ``final_layer/adaLN`` Dense ->
+``final_layer.adaLN_modulation.1`` (the name
+``zigma_tpu/convert/torch_zigma.py`` reads).
+
 Text models: the Dense ``y_embedder`` -> the Linear ``y_embedder``; each
 block's ``msa`` (``to_q``, ``to_k``, ``to_v``, ``to_out``) ->
 ``blocks.{i}.msa.{to_q,to_k,to_v,to_out.0}``, the reference names.
@@ -197,10 +201,12 @@ def state_dict_from_jax(params: dict) -> dict:
     sd["norm_f.weight"] = _tensor(p.pop("norm_f_weight"))
     if "norm_f_bias" in p:
         sd["norm_f.bias"] = _tensor(p.pop("norm_f_bias"))
-    fl = p.pop("final_layer")
-    if set(fl) != {"linear"}:
-        raise NotImplementedError("a conditioned FinalLayer lands in a later slice")
-    _dense(sd, "final_layer.linear", fl["linear"])
+    fl = dict(p.pop("final_layer"))
+    _dense(sd, "final_layer.linear", fl.pop("linear"))
+    if "adaLN" in fl:  # FinalLayer(cond=True)
+        _dense(sd, "final_layer.adaLN_modulation.1", fl.pop("adaLN"))
+    if fl:
+        raise ValueError(f"unconverted JAX final_layer params {sorted(fl)}")
     if p:
         raise ValueError(f"unconverted JAX params {sorted(p)}")
     return sd

@@ -135,11 +135,13 @@ __device__ __forceinline__ void stage_tile(E* s, const E* g, long long row, int 
   }
 }
 
-// Host side: elements a copy for rows starting at p, `row` elements apart:
-// the widest of 16, 8, 4 bytes (or one element) both are aligned to, at
-// most `cols`
-inline int vec_elems(const void* p, long long row, int elt, int cols) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(row * elt);
+// Host side: elements a copy for rows starting at p + k * off (the blocks'
+// offsets past the channels a block covers: a group's first channel, or its
+// slice of grouped B / C), `row` elements apart: the widest of 16, 8, 4
+// bytes (or one element) all are aligned to, at most `cols`
+inline int vec_elems(const void* p, long long row, int elt, int cols, long long off = 0) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p) | static_cast<uintptr_t>(row * elt) |
+                      static_cast<uintptr_t>(off * elt);
   int bytes = 16;
   while (bytes > elt && a % bytes != 0) bytes >>= 1;
   return bytes / elt < cols ? bytes / elt : cols;

@@ -10,8 +10,17 @@
 //   dla_t = g_t * exp(dt_t A) * x_{t-1}             d loss / d (dt_t A)
 //   du_t  = dt_t * <g_t, B_t>        (+ gy_t * Dskip under the fused gate)
 //   ddelta_t = (<dla_t, A> + u_t <g_t, B_t>) * sigmoid(delta_t + bias)
+//              (* 1 without softplus, where dt_t = delta_t + bias)
 //   dB_t  = sum_d g_t dt_t u_t,  dC_t = sum_d gy_t x_t,  dA = sum_{b,t} dla dt
 //   dx0   = exp(dt_0 A) g_0
+//
+// Grouped B / C (B, L, G, N) as in K1: the grid's x axis runs over G x
+// ceil(H / channels a block) blocks, H = D / G, each block in one group, its
+// B / C tiles from the group's slice; the sums over d of dB and dC are then
+// per group (the wrapper sums the blocks of each group).  G > 1 runs an
+// instance of its own (GROUPED): the group's index and offsets in the one
+// for G = 1 cost it 2 registers at the cap of 128 and 3% at the flagship
+// shape on an H100.
 //
 // Under the fused gate (Dskip and z given) gy is the cotangent of
 // (y + u Dskip) silu(z); the kernel recomputes y = <C_t, x_t> and emits
@@ -19,7 +28,7 @@
 //
 // Outputs, all written once, no atomics (two launches on the same inputs
 // give bit-equal results): du, ddelta, dz (B, L, D) in the input dtype;
-// per-block dB / dC partials (B, ceil(D / channels a block), L, N) fp32;
+// per-block dB / dC partials (B, G ceil(H / channels a block), L, N) fp32;
 // per-batch dA partials and dx0 (B, N, D) fp32; per-batch dD partials (B, D)
 // fp32.  The wrapper sums the partials with torch.sum, as
 // scan_core_bwd_pallas does with jnp.sum.
@@ -126,6 +135,9 @@ struct Params {
   float* dBp; float* dCp; float* dAp; float* dx0; float* dDp;
   int batch, L, D, N;
   long long u_row, delta_row, b_row, c_row, z_row;  // elements between tokens
+  long long b_grp, c_grp;                            // elements between groups of B, C
+  int H, blocks_per_group;                           // channels a group, blocks a group
+  int softplus;                                      // dt = softplus(delta + bias), or not
   int t_tile;                                        // TC, steps a tile
   int vec_u, vec_delta, vec_b, vec_c, vec_z, vec_gy; // elements a copy
   int out_aligned;                                   // du, ddelta, dz rows aligned to kVec elements
@@ -221,7 +233,9 @@ __device__ __forceinline__ void stage_any(E* s, const E* g, long long row, int r
   stage_tile_call(s, g, row, rows, COLS, rows_ok, cols_ok, vec);
 }
 
-template <typename E, int NPT, int NL>
+// GROUPED: B / C in groups; an instance of its own, so that one group (the
+// model's (B, L, N)) keeps the indexing, and the registers, of a grid over D
+template <typename E, int NPT, int NL, bool GROUPED>
 __global__ void __launch_bounds__(kThreads, NPT == 4 ? kRegBlocks : 1)
 selective_scan_bwd_kernel(Params p) {
   constexpr int CPB = channels_per_block(NL);
@@ -251,10 +265,12 @@ selective_scan_bwd_kernel(Params p) {
             off_B = 4 * tc * CPB, off_C = 4 * tc * CPB + tc * NPAD;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int d0 = blockIdx.x * CPB;
+  const int grp = GROUPED ? blockIdx.x / p.blocks_per_group : 0;  // B / C group
+  const int d0 = GROUPED ? grp * p.H + (blockIdx.x - grp * p.blocks_per_group) * CPB
+                         : blockIdx.x * CPB;
   const int b = blockIdx.y;
   const int nD = gridDim.x;
-  const int cols_ok = min(CPB, p.D - d0);
+  const int cols_ok = min(CPB, (GROUPED ? (grp + 1) * p.H : p.D) - d0);
   const int ch = tid / NL;   // channel within the block
   const int sub = tid % NL;  // which NPT states of it
   const int d = d0 + ch;
@@ -266,8 +282,8 @@ selective_scan_bwd_kernel(Params p) {
 
   const E* u = static_cast<const E*>(p.u);
   const E* dl = static_cast<const E*>(p.delta);
-  const E* Bm = static_cast<const E*>(p.Bm);
-  const E* Cm = static_cast<const E*>(p.Cm);
+  const E* Bm = static_cast<const E*>(p.Bm) + (GROUPED ? grp * p.b_grp : 0);
+  const E* Cm = static_cast<const E*>(p.Cm) + (GROUPED ? grp * p.c_grp : 0);
   const E* gy = static_cast<const E*>(p.gy);
   const E* z = static_cast<const E*>(p.z);
 
@@ -359,13 +375,14 @@ selective_scan_bwd_kernel(Params p) {
 #pragma unroll 1
     for (int i = tid; i < tlen * CPB; i += kThreads) {
       const float pre = to_f32(buf[tj * CPB + i]) + bias_s[i % CPB];
-      const float ex = expf(pre);
-      const float dt = pre <= 20.f ? log1pf(ex) : pre;  // zt::softplus, as K1
+      const bool sp = p.softplus && pre <= 20.f;  // else dt = pre, its derivative 1
+      const float ex = sp ? expf(pre) : 0.f;
+      const float dt = sp ? log1pf(ex) : pre;  // zt::softplus, as K1
       const float dtu = dt * to_f32(buf[i]);
       if (fwd) {
         reinterpret_cast<float2*>(wv)[i] = make_float2(dt, dtu);
       } else {
-        const float sg = pre <= 20.f ? ex * __frcp_rn(1.f + ex) : 1.f;  // 1 in fp32 above 17
+        const float sg = sp ? ex * __frcp_rn(1.f + ex) : 1.f;  // 1 in fp32 above 17
         const float g_out = to_f32(buf[off_gy + i]);
         float gyr = g_out;
         if (fused) {
@@ -618,25 +635,27 @@ void layout_for(int N, int* npt, int* nl) {
   while (*nl * *npt < N) *nl *= 2;
 }
 
-template <typename E>
+template <typename E, bool GROUPED>
 const void* kernel_for(int npt, int nl) {
-  if (npt != kNPT) return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, 8, 32>);
+  if (npt != kNPT)
+    return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, 8, 32, GROUPED>);
   switch (nl) {
-    case 1: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 1>);
-    case 2: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 2>);
-    case 4: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 4>);
-    case 8: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 8>);
-    case 16: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 16>);
-    case 32: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 32>);
+    case 1: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 1, GROUPED>);
+    case 2: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 2, GROUPED>);
+    case 4: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 4, GROUPED>);
+    case 8: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 8, GROUPED>);
+    case 16: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 16, GROUPED>);
+    case 32: return reinterpret_cast<const void*>(selective_scan_bwd_kernel<E, kNPT, 32, GROUPED>);
   }
   return nullptr;
 }
 
 // The launch shape for d_state N and length L: the layout, CPB channels a
 // block, and the longest tile (8 ... 64 steps, no longer than L needs)
-// whose shared memory fits the budget (the shortest where none does).
-// Also allows the kernel that much dynamic shared memory.
-int pick(int N, int L, int dtype, Config* c) {
+// whose shared memory fits the budget (the shortest where none does); the
+// grouped instance for G > 1.  Also allows the kernel that much dynamic
+// shared memory.
+int pick(int N, int L, int dtype, int G, Config* c) {
   if (N < 1 || N > 256 || L < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   layout_for(N, &c->npt, &c->nl);
   c->cpb = channels_per_block(c->nl);
@@ -648,8 +667,11 @@ int pick(int N, int L, int dtype, Config* c) {
     c->t_tile *= 2;
   c->smem = smem_bytes(c->t_tile, c->npt, c->cpb, npad, elt);
   if (c->smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  c->fn = dtype == 0 ? kernel_for<float>(c->npt, c->nl)
-                     : kernel_for<__nv_bfloat16>(c->npt, c->nl);
+  const bool grouped = G > 1;
+  c->fn = dtype == 0 ? (grouped ? kernel_for<float, true>(c->npt, c->nl)
+                                : kernel_for<float, false>(c->npt, c->nl))
+                     : (grouped ? kernel_for<__nv_bfloat16, true>(c->npt, c->nl)
+                                : kernel_for<__nv_bfloat16, false>(c->npt, c->nl));
   return (int)cudaFuncSetAttribute(c->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)c->smem);
 }
@@ -666,7 +688,10 @@ extern "C" int zt_selective_scan_bwd_channels_per_block(int N) {
 
 // dtype: 0 = float32, 1 = bfloat16 (u, delta, B, C, gy, z, du, ddelta and dz
 // share it).  g_last and Dskip/z/dz/dDp may be null (no fused gate).  gy, du,
-// ddelta, dz and every fp32 tensor are contiguous.  Any batch: more than
+// ddelta, dz and every fp32 tensor are contiguous.  G groups of B / C and
+// softplus as for zt_selective_scan_fwd; dBp / dCp hold G x
+// ceil(D / G / zt_selective_scan_bwd_channels_per_block(N)) blocks a
+// sequence.  Any batch: more than
 // kMaxGridY sequences are launched in slices of that many (every output and
 // partial is per sequence, so the slices write disjoint rows).  Returns the
 // first failing launch's cudaGetLastError().
@@ -678,27 +703,34 @@ extern "C" int zt_selective_scan_bwd(
     float* dx0, float* dDp,
     int batch, int L, int D, int N,
     long long u_row, long long delta_row, long long b_row, long long c_row,
-    long long z_row, int dtype, void* stream) {
-  if (D < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+    long long z_row, long long b_grp, long long c_grp, int G, int softplus,
+    int dtype, void* stream) {
+  if (D < 1 || batch < 1 || G < 1 || D % G != 0) return (int)cudaErrorInvalidValue;
   if ((Dskip == nullptr) != (z == nullptr) || (z != nullptr && (dz == nullptr || dDp == nullptr)))
     return (int)cudaErrorInvalidValue;
   Config c;
-  int err = pick(N, L, dtype, &c);
+  int err = pick(N, L, dtype, G, &c);
   if (err != 0) return err;
   const int elt = dtype == 0 ? 4 : 2;
   const int npad = c.nl * c.npt;
   const long long n_chunks = (L + kCarryEvery - 1) / kCarryEvery;
-  const long long n_blocks = (D + c.cpb - 1) / c.cpb;
+  const int H = D / G, per_group = (H + c.cpb - 1) / c.cpb;
+  const long long n_blocks = (long long)G * per_group;
+  // a block's channels start at a multiple of H (and of the channels a
+  // block), its B / C at a multiple of b_grp / c_grp: with one group, at
+  // multiples of the channels a block only
+  const long long off = G > 1 ? H : 0, bg = G > 1 ? b_grp : 0, cg = G > 1 ? c_grp : 0;
   // the copy widths of the first slice hold for every slice: each is
   // advanced by whole rows
   Params p{u, delta, A, bias, Bm, Cm, carries, gy, g_last, Dskip, z,
            du, ddelta, dz, dBp, dCp, dAp, dx0, dDp,
-           batch, L, D, N, u_row, delta_row, b_row, c_row, z_row, c.t_tile,
-           vec_elems(u, u_row, elt, c.cpb), vec_elems(delta, delta_row, elt, c.cpb),
-           vec_elems(Bm, b_row, elt, npad), vec_elems(Cm, c_row, elt, npad),
-           z ? vec_elems(z, z_row, elt, c.cpb) : 1, vec_elems(gy, D, elt, c.cpb),
-           vec_elems(du, D, elt, kVec) == kVec && vec_elems(ddelta, D, elt, kVec) == kVec &&
-               (dz == nullptr || vec_elems(dz, D, elt, kVec) == kVec)};
+           batch, L, D, N, u_row, delta_row, b_row, c_row, z_row, bg, cg, H, per_group,
+           softplus != 0, c.t_tile,
+           vec_elems(u, u_row, elt, c.cpb, off), vec_elems(delta, delta_row, elt, c.cpb, off),
+           vec_elems(Bm, b_row, elt, npad, bg), vec_elems(Cm, c_row, elt, npad, cg),
+           z ? vec_elems(z, z_row, elt, c.cpb, off) : 1, vec_elems(gy, D, elt, c.cpb, off),
+           vec_elems(du, D, elt, kVec, off) == kVec && vec_elems(ddelta, D, elt, kVec, off) == kVec &&
+               (dz == nullptr || vec_elems(dz, D, elt, kVec, off) == kVec)};
   for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
     const long long rows = (long long)b0 * L, states = (long long)b0 * N * D;
     Params q = p;
@@ -735,7 +767,7 @@ extern "C" int zt_selective_scan_bwd(
 // bytes a block}.
 extern "C" int zt_selective_scan_bwd_info(int N, int L, int dtype, int* info) {
   Config c;
-  int err = pick(N, L, dtype, &c);
+  int err = pick(N, L, dtype, 1, &c);
   if (err != 0) return err;
   cudaFuncAttributes a;
   err = (int)cudaFuncGetAttributes(&a, c.fn);

@@ -4,11 +4,20 @@
 // Replaces the TPU kernel zigma_tpu/ops/scan_pallas.py::_scan_kernel
 // (launched by scan_core_fwd_pallas).  Per (batch b, channel d):
 //
-//   dt_t = softplus(delta_t + bias)          (dt_t kept as-is above 20)
+//   dt_t = softplus(delta_t + bias)          (dt_t kept as-is above 20), or
+//   dt_t = delta_t + bias                    without softplus (the Pallas
+//                                            kernel's static `softplus`)
 //   x_t  = exp(dt_t * A) * x_{t-1} + dt_t * u_t * B_t      state (N,), fp32
 //   y_t  = sum_n C_t[n] * x_t[n]
 //   out  = y                                  or, fused,
 //   out  = (y + u_t * Dskip) * silu(z_t)
+//
+// B and C are (B, L, N), or grouped (B, L, G, N): group g serves the D / G
+// consecutive channels [g H, (g + 1) H), H = D / G (the JAX package vmaps
+// the Pallas kernel over the groups; here the grid's x axis runs over
+// G x ceil(H / channels a block) blocks, so no block straddles two groups,
+// and a group's tail block masks its channels against H).  A group's B / C
+// start g * b_grp elements in (0 for a tensor shared by every group).
 //
 // Outputs: out (B, L, D) in the input dtype, optional chunk-START states
 // (B, ceil(L/128), N, D) fp32 (the state before steps 0, 128, 256, ...;
@@ -88,6 +97,9 @@ struct Params {
   void* out; float* carries; float* x_last;
   int batch, L, D, N;
   long long u_row, delta_row, b_row, c_row, z_row;  // elements between tokens
+  long long b_grp, c_grp;                            // elements between groups of B, C
+  int H, blocks_per_group;                           // channels a group, blocks a group
+  int softplus;                                      // dt = softplus(delta + bias), or not
   int t_chunk;                                       // TC, steps a chunk
   int vec_u, vec_delta, vec_b, vec_c, vec_z;         // elements a copy
   int out_aligned;                                   // rows of out 16-byte aligned
@@ -131,9 +143,10 @@ __global__ void __launch_bounds__(kMaxThreads) selective_scan_fwd_kernel(Params 
   const int off_delta = tc * CPB, off_z = 2 * tc * CPB, off_B = 3 * tc * CPB,
             off_C = 3 * tc * CPB + tc * NPAD;
 
-  const int d0 = blockIdx.x * CPB;
+  const int g = blockIdx.x / p.blocks_per_group;  // B / C group
+  const int d0 = g * p.H + (blockIdx.x - g * p.blocks_per_group) * CPB;
   const int b = blockIdx.y;
-  const int cols_ok = min(CPB, p.D - d0);
+  const int cols_ok = min(CPB, (g + 1) * p.H - d0);
   const int ch = threadIdx.x / NL;   // channel within the block
   const int sub = threadIdx.x % NL;  // which NPT states of it
   const int d = d0 + ch;
@@ -158,8 +171,12 @@ __global__ void __launch_bounds__(kMaxThreads) selective_scan_fwd_kernel(Params 
     if (fused)
       stage_tile(buf + off_z, z + r0 * p.z_row + d0, p.z_row, tc, CPB, rows_ok, cols_ok,
                  p.vec_z);
-    stage_tile(buf + off_B, Bm + r0 * p.b_row, p.b_row, tc, NPAD, rows_ok, p.N, p.vec_b);
-    stage_tile(buf + off_C, Cm + r0 * p.c_row, p.c_row, tc, NPAD, rows_ok, p.N, p.vec_c);
+    // the group's B / C, offset here (not in Bm, Cm) so that no pointer of
+    // the group stays in registers over the walk
+    stage_tile(buf + off_B, Bm + (r0 * p.b_row + g * p.b_grp), p.b_row, tc, NPAD, rows_ok, p.N,
+               p.vec_b);
+    stage_tile(buf + off_C, Cm + (r0 * p.c_row + g * p.c_grp), p.c_row, tc, NPAD, rows_ok, p.N,
+               p.vec_c);
     cp_async_commit();
   };
 
@@ -229,7 +246,7 @@ __global__ void __launch_bounds__(kMaxThreads) selective_scan_fwd_kernel(Params 
         load8(bias_s + k % CPB, bv);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          dt[e] = softplus(dv[e] + bv[e]);
+          dt[e] = p.softplus ? softplus(dv[e] + bv[e]) : dv[e] + bv[e];
           du[e] = dt[e] * uv[e];
         }
         store8(dts + k, dt);
@@ -336,30 +353,40 @@ int pick(int N, int L, int dtype, Config* c) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (u, delta, B, C, z and out share it).
-// x0, Dskip/z, carries and x_last may be null.  Any batch: more than
-// kMaxGridY sequences are launched in slices of that many.  Returns the
-// first failing launch's cudaGetLastError().
+// x0, Dskip/z, carries and x_last may be null.  G groups of B / C (G divides
+// D; 1 for (B, L, N)), group g's B at Bm + g * b_grp.  softplus: 1 for
+// dt = softplus(delta + bias), 0 for dt = delta + bias.  Any batch: more
+// than kMaxGridY sequences are launched in slices of that many.  Returns
+// the first failing launch's cudaGetLastError().
 extern "C" int zt_selective_scan_fwd(
     const void* u, const void* delta, const float* A, const float* bias,
     const void* Bm, const void* Cm, const float* x0, const float* Dskip,
     const void* z, void* out, float* carries, float* x_last,
     int batch, int L, int D, int N,
     long long u_row, long long delta_row, long long b_row, long long c_row,
-    long long z_row, int dtype, void* stream) {
-  if (D < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+    long long z_row, long long b_grp, long long c_grp, int G, int softplus,
+    int dtype, void* stream) {
+  if (D < 1 || batch < 1 || G < 1 || D % G != 0) return (int)cudaErrorInvalidValue;
   Config c;
   int err = pick(N, L, dtype, &c);
   if (err != 0) return err;
   const int elt = dtype == 0 ? 4 : 2;
   const int npad = c.nl * kNPT;
   const long long n_carry = (L + kCarryEvery - 1) / kCarryEvery;
+  const int H = D / G, per_group = (H + c.cpb - 1) / c.cpb;
+  // a block's channels start at a multiple of H (and of the channels a
+  // block), its B / C at a multiple of b_grp / c_grp: with one group, at
+  // multiples of the channels a block only
+  const long long off = G > 1 ? H : 0, bg = G > 1 ? b_grp : 0, cg = G > 1 ? c_grp : 0;
   // the copy widths of the first slice hold for every slice: each is
   // advanced by whole rows
   Params p{u, delta, Bm, Cm, z, A, bias, x0, Dskip, out, carries, x_last,
-           batch, L, D, N, u_row, delta_row, b_row, c_row, z_row, c.t_chunk,
-           vec_elems(u, u_row, elt, c.cpb), vec_elems(delta, delta_row, elt, c.cpb),
-           vec_elems(Bm, b_row, elt, npad), vec_elems(Cm, c_row, elt, npad),
-           z ? vec_elems(z, z_row, elt, c.cpb) : 1, vec_elems(out, D, elt, 8) * elt == 16};
+           batch, L, D, N, u_row, delta_row, b_row, c_row, z_row, bg, cg, H, per_group,
+           softplus != 0, c.t_chunk,
+           vec_elems(u, u_row, elt, c.cpb, off), vec_elems(delta, delta_row, elt, c.cpb, off),
+           vec_elems(Bm, b_row, elt, npad, bg), vec_elems(Cm, c_row, elt, npad, cg),
+           z ? vec_elems(z, z_row, elt, c.cpb, off) : 1,
+           vec_elems(out, D, elt, 8, off) * elt == 16};
   for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
     const long long rows = (long long)b0 * L, states = (long long)b0 * N * D;
     Params q = p;
@@ -374,7 +401,7 @@ extern "C" int zt_selective_scan_fwd(
     q.carries = advance(carries, n_carry * states, 4);
     q.x_last = advance(x_last, states, 4);
     void* args[] = {&q};
-    dim3 grid((D + c.cpb - 1) / c.cpb, q.batch);
+    dim3 grid(G * per_group, q.batch);
     err = (int)cudaLaunchKernel(c.fn, grid, dim3(c.threads), args, c.smem,
                                 static_cast<cudaStream_t>(stream));
     const int last = (int)cudaGetLastError();

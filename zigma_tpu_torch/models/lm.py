@@ -17,8 +17,9 @@ its final state (K1 on CUDA for Mamba-1) and returns the last position's
 logits with the per-layer caches; ``step`` takes one token and the caches.
 ``generate`` is ``prefill`` then a Python loop of ``step`` calls under
 ``torch.inference_mode()``, with greedy, temperature or top-k selection
-(``select``); the JAX package's loop is a ``lax.scan``.  Both run without a
-gradient (the scan's final state under autograd is a later slice).
+(``select``); the JAX package's loop is a ``lax.scan``.  ``generate`` runs
+without a gradient; a ``prefill`` under autograd is differentiable through
+each layer's final state too (K2 seeded by its cotangent on CUDA).
 """
 
 from __future__ import annotations

@@ -26,9 +26,12 @@ collectives are ``parallel.collectives``'s and the scan sees plain local
 tensors.
 
 On CUDA the scan is the hand-written kernels (K1 forward, K2 backward) with
-the ``(y + u*D)*silu(z)`` gate fused in.  The scan-path gathers go through
-``permute_tokens``, whose backward is the gather by the functional inverse
-of the permutation (``vjp_inverse``), not torch indexing's scatter-add.
+the ``(y + u*D)*silu(z)`` gate fused in; ``scan_backend`` / ``scan_chunk``
+pick another of ``selective_scan``'s backends (``chunked`` with its steps a
+chunk, ``assoc``, ``ref``) as in the JAX package.  The scan-path gathers go
+through ``permute_tokens``, whose backward is the gather by the functional
+inverse of the permutation (``vjp_inverse``), not torch indexing's
+scatter-add.
 
 Decode (the LM's, ``models/lm.py``): ``step`` takes one token and a
 ``MambaCache`` (the last ``d_conv`` pre-conv inputs and the fp32 SSM
@@ -54,7 +57,7 @@ from zigma_tpu_torch.models.inits import (rescaled_linear_init_,
                                           torch_linear_init_, uniform_)
 from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
                                                causal_conv1d_update)
-from zigma_tpu_torch.ops.selective_scan import (selective_scan,
+from zigma_tpu_torch.ops.selective_scan import (BACKENDS, selective_scan,
                                                 selective_state_update)
 from zigma_tpu_torch.parallel.collectives import (copy_to_group, reduce_both,
                                                   row_parallel_linear)
@@ -186,7 +189,8 @@ class Mamba(nn.Module):
                  st: Optional[str] = None,
                  parallel_perms: Optional[tuple] = None, n_layer: int = 1,
                  dtype: torch.dtype = torch.float32, scan_backend: str = "auto",
-                 conv_fp32_taps: bool = False, device=None):
+                 scan_chunk: int = 128, conv_fp32_taps: bool = False,
+                 device=None):
         super().__init__()
         if not scan_type.startswith(_SCANS):
             raise ValueError(f"unknown scan_type: {scan_type!r}")
@@ -214,7 +218,11 @@ class Mamba(nn.Module):
         self.dt_init, self.dt_scale, self.dt_init_floor = dt_init, dt_scale, dt_init_floor
         self.scan_type, self.n_layer = scan_type, n_layer
         self.video_frames, self.st = video_frames, st
+        if scan_backend not in BACKENDS:
+            raise ValueError(f"unknown scan_backend {scan_backend!r} "
+                             f"({' | '.join(BACKENDS)})")
         self.dtype, self.scan_backend = dtype, scan_backend
+        self.scan_chunk = scan_chunk
         self.conv_accum = torch.float32 if conv_fp32_taps else None
         self.directions = ("", "_b") if scan_type == "v2" else ("",)
 
@@ -340,7 +348,8 @@ class Mamba(nn.Module):
                               delta_bias=dt_proj.bias.float(),
                               delta_softplus=True,
                               return_last_state=return_last_state,
-                              backend=self.scan_backend)
+                              backend=self.scan_backend,
+                              chunk=self.scan_chunk)
 
     def forward(self, x):
         """x: (batch, L, d_model) -> (batch, L, d_model)."""

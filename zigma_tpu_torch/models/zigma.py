@@ -88,8 +88,8 @@ from zigma_tpu_torch.parallel.collectives import (copy_to_group,
                                                   row_parallel_linear)
 
 __all__ = ["ZigMa", "ZigMaBlock", "CrossAttention", "FinalLayer",
-           "ZIGMA_PRESETS", "zigma_flops", "modulate", "drop_path",
-           "drop_path_rates", "REMAT_POLICIES", "remat_policy_fn"]
+           "ZIGMA_PRESETS", "zigma_model", "zigma_flops", "modulate",
+           "drop_path", "drop_path_rates", "REMAT_POLICIES", "remat_policy_fn"]
 
 REMAT_POLICIES = ("scan_out", "dots", "scan_out+dots")
 
@@ -260,21 +260,36 @@ class ZigMaBlock(nn.Module):
 
 
 class FinalLayer(nn.Module):
-    """LayerNorm without affine (eps 1e-6) + linear to patch pixels."""
+    """LayerNorm without affine (eps 1e-6) + linear to patch pixels.  With
+    ``cond`` (the JAX ``FinalLayer(cond=True)``, which ZigMa never builds,
+    as in JAX) also an adaLN: ``shift, scale`` from a zero-init linear on
+    ``silu(c)`` (``adaLN_modulation.1``, the reference's name) modulate the
+    normed features when ``forward`` gets ``c``."""
 
     def __init__(self, hidden: int, patch_size: int, out_channels: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 cond: bool = False, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.cond = dtype, cond
         self.linear = nn.Linear(hidden, patch_size * patch_size * out_channels,
                                 device=device)
+        if cond:
+            self.adaLN_modulation = nn.Sequential(
+                nn.SiLU(), nn.Linear(hidden, 2 * hidden, device=device))
 
     def reset_parameters(self, generator=None):
         torch_linear_init_(self.linear.weight, generator)
         nn.init.zeros_(self.linear.bias)
+        if self.cond:
+            nn.init.zeros_(self.adaLN_modulation[1].weight)
+            nn.init.zeros_(self.adaLN_modulation[1].bias)
 
-    def forward(self, x):
-        return dense(self.linear, layer_norm(x, eps=1e-6), self.dtype)
+    def forward(self, x, c=None):
+        h = layer_norm(x, eps=1e-6)
+        if self.cond and c is not None:
+            mod = dense(self.adaLN_modulation[1], F.silu(c), self.dtype)
+            h = modulate(h, *mod.chunk(2, dim=-1))
+        return dense(self.linear, h, self.dtype)
 
 
 class ZigMa(nn.Module):
@@ -291,17 +306,20 @@ class ZigMa(nn.Module):
                  use_pe: int = 0, use_checkpoint: bool = False,
                  remat_policy: Optional[str] = None,
                  ssm_cfg: Optional[dict] = None, path_seed: int = 0,
-                 scan_backend: str = "auto", has_text: bool = False,
+                 scan_backend: str = "auto", scan_chunk: int = 128,
+                 scan_layers: Optional[bool] = None, has_text: bool = False,
                  d_context: int = 0, n_context_token: int = 0,
                  video_frames: int = 0, tpe: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 device=None, generator: Optional[torch.Generator] = None,
-                 **unsupported):
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         ssm_cfg = dict(ssm_cfg or {})
-        if unsupported:
+        if scan_layers:
             raise NotImplementedError(
-                f"{unsupported}: lands in a later slice of the port")
+                "scan_layers (nn.scan over the blocks, one stacked parameter "
+                "tree) is a TPU compile-size workaround that the port does "
+                "not carry over: it keeps per-layer blocks.{i}, the layout "
+                "of scan_layers=False")
         if use_pe not in (0, 1, 2, 3):
             raise ValueError(f"unknown use_pe {use_pe} (0 none, 1 sin-cos, "
                              f"2 learned, 3 learned per layer)")
@@ -364,7 +382,8 @@ class ZigMa(nn.Module):
                                        st=None if st_order is None
                                        else st_order[i],
                                        parallel_perms=parallel_perms,
-                                       scan_backend=scan_backend, **ssm_cfg),
+                                       scan_backend=scan_backend,
+                                       scan_chunk=scan_chunk, **ssm_cfg),
                        has_text=has_text, rms_norm=rms_norm, norm_epsilon=norm_epsilon,
                        residual_in_fp32=residual_in_fp32, n_layer=depth,
                        dtype=dtype, device=device)
@@ -540,6 +559,14 @@ ZIGMA_PRESETS = {
     "zigma_h_2": dict(patch_size=2, embed_dim=1536, depth=48),
     "zigma_h_4": dict(patch_size=4, embed_dim=1536, depth=48),
 }
+
+
+def zigma_model(preset: str, **kwargs) -> ZigMa:
+    """Build a ZigMa from a size preset, e.g. ``zigma_model("zigma_b_1",
+    ...)``."""
+    cfg = dict(ZIGMA_PRESETS[preset])
+    cfg.update(kwargs)
+    return ZigMa(**cfg)
 
 
 def zigma_flops(batch: int, seq: int, embed_dim: int, depth: int,

@@ -10,11 +10,16 @@ from zigma_tpu_torch.ops.paths import (
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
 from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
                                                causal_conv1d_update)
-from zigma_tpu_torch.ops.selective_scan import (scan_with_grad, selective_scan,
+from zigma_tpu_torch.ops.selective_scan import (scan_backend, scan_with_grad,
+                                                selective_scan,
                                                 selective_scan_bwd_ref,
+                                                selective_scan_flops,
                                                 selective_scan_ref,
                                                 selective_state_update)
-from zigma_tpu_torch.ops.scan_cuda import (selective_scan_bwd_cuda,
+from zigma_tpu_torch.ops.scan_chunked import (selective_scan_assoc,
+                                              selective_scan_chunked)
+from zigma_tpu_torch.ops.scan_cuda import (cuda_shape_supported,
+                                           selective_scan_bwd_cuda,
                                            selective_scan_fwd_cuda)
 from zigma_tpu_torch.ops.ssd import ssd_scan, ssd_scan_ref, ssd_state_update
 
@@ -31,8 +36,13 @@ __all__ = [
     "rms_norm",
     "causal_conv1d",
     "causal_conv1d_update",
+    "scan_backend",
     "scan_with_grad",
     "selective_scan",
+    "selective_scan_assoc",
+    "selective_scan_chunked",
+    "selective_scan_flops",
+    "cuda_shape_supported",
     "selective_scan_ref",
     "selective_state_update",
     "selective_scan_bwd_ref",

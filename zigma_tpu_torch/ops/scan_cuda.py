@@ -7,12 +7,17 @@
   (``scan_core_bwd_pallas``); its plain version is
   ``selective_scan.selective_scan_bwd_ref``.
 
-``selective_scan`` runs the plain versions for tensors on the CPU; these
-wrappers only ever launch their kernel and raise on anything it does not
-take.  Each checks device, dtype, shape and layout, allocates every output
-with ``torch.empty``, launches on ``torch.cuda.current_stream()`` without
-synchronising, raises if ``cudaGetLastError()`` reports a failed launch, and
-counts its launches in ``<wrapper>.launches``.  One wrapper call takes any
+Both take the Pallas kernels' whole contract: dt = softplus(delta + bias)
+or, with ``delta_softplus=False``, dt = delta + bias; B and C of shape
+(batch, L, N) or grouped (batch, L, G, N), in one launch over all groups (the
+JAX package vmaps the Pallas kernels over the groups).  ``selective_scan``
+runs the plain versions for tensors on the CPU and sends to the kernels only
+what ``cuda_shape_supported`` accepts; these wrappers only ever launch their
+kernel and raise on anything it does not take.  Each checks device,
+dtype, shape and layout, allocates every output with ``torch.empty``,
+launches on ``torch.cuda.current_stream()`` without synchronising, raises
+if ``cudaGetLastError()`` reports a failed launch, and counts its launches
+in ``<wrapper>.launches``.  One wrapper call takes any
 batch and counts one launch: past the grid's 65535 sequences the C entry
 point launches the kernel on slices of the batch.
 """
@@ -28,7 +33,7 @@ from zigma_tpu_torch.ops import _build
 
 __all__ = ["selective_scan_fwd_cuda", "selective_scan_bwd_cuda",
            "selective_scan_fwd_launch_info", "selective_scan_bwd_launch_info",
-           "CARRY_EVERY", "MAX_D_STATE"]
+           "cuda_shape_supported", "CARRY_EVERY", "MAX_D_STATE"]
 
 SOURCE = "selective_scan_fwd.cu"
 SOURCE_BWD = "selective_scan_bwd.cu"
@@ -44,10 +49,20 @@ def _kernel():
     if _fn is None:
         fn = _build.load(SOURCE).zt_selective_scan_fwd
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 12 + [i32] * 4 + [i64] * 5 + [i32, vp]
+        fn.argtypes = [vp] * 12 + [i32] * 4 + [i64] * 7 + [i32] * 3 + [vp]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def cuda_shape_supported(L: int, d: int, N: int, dtype) -> bool:
+    """Whether K1 and K2 take a scan of length ``L`` over ``d`` channels a
+    group with d_state ``N`` in ``dtype``: the counterpart of the JAX
+    package's ``pallas_shape_supported``, which ``selective_scan``'s
+    ``auto`` asks in the same way.  Any L and d; N up to MAX_D_STATE (the
+    states a channel the kernels hold in registers: 32 lanes x 8); float32
+    or bfloat16."""
+    return L >= 1 and d >= 1 and 1 <= N <= MAX_D_STATE and dtype in _DTYPES
 
 
 def _launch_info(source: str, symbol: str, steps_key: str, N: int, L: int,
@@ -90,7 +105,7 @@ def _bwd_kernel():
         lib = _build.load(SOURCE_BWD)
         fn = lib.zt_selective_scan_bwd
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 19 + [i32] * 4 + [i64] * 5 + [i32, vp]
+        fn.argtypes = [vp] * 19 + [i32] * 4 + [i64] * 7 + [i32] * 3 + [vp]
         fn.restype = ctypes.c_int
         cpb = lib.zt_selective_scan_bwd_channels_per_block
         cpb.argtypes, cpb.restype = [i32], i32
@@ -102,13 +117,38 @@ def _row_stride(name: str, t: torch.Tensor, shape) -> int:
     """Elements between consecutive tokens of a (batch, L, C) tensor whose
     channels are contiguous and whose tokens are evenly spaced (a plain
     contiguous tensor, or a slice along the last dim such as ``z`` out of
-    ``xz``)."""
+    ``xz``); also of a (batch, L, G, N) one whose N are contiguous."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-    if t.stride(2) != 1 or t.stride(0) != t.shape[1] * t.stride(1):
+    if t.stride(-1) != 1 or t.stride(0) != t.shape[1] * t.stride(1):
         raise ValueError(f"{name}: needs unit channel stride and evenly "
                          f"spaced tokens, got strides {t.stride()}")
     return t.stride(1)
+
+
+def _groups(B, C, batch, L, N):
+    """G and, for B and C, (elements between tokens, elements between
+    groups): B and C are (batch, L, N), the same for every group (0
+    between groups), or (batch, L, G, N) with one G."""
+    ranks = {B.dim(), C.dim()}
+    if not ranks <= {3, 4}:
+        raise ValueError(f"the kernels take B / C of shape (batch, L, N) or "
+                         f"(batch, L, G, N), got {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}; static (d, N) B / C run on "
+                         f"selective_scan's assoc backend")
+    groups = {t.shape[2] for t in (B, C) if t.dim() == 4}
+    if len(groups) > 1:
+        raise ValueError(f"grouped B / C must agree on n_groups, got "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    G = groups.pop() if groups else 1
+    strides = []
+    for name, t in (("B", B), ("C", C)):
+        if t.dim() == 3:
+            strides.append((_row_stride(name, t, (batch, L, N)), 0))
+        else:
+            strides.append((_row_stride(name, t, (batch, L, G, N)),
+                            t.stride(2)))
+    return G, strides
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -116,8 +156,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _check_scan_inputs(who: str, tensors: dict, fp32_names):
-    """The checks both kernels share.  Returns
-    ``(batch, L, d, N, dtype, row strides of u, delta, B, C, z)``."""
+    """The checks both kernels share.  Returns ``(batch, L, d, N, dtype,
+    row strides of u, delta, B, C, z and the group strides of B, C, G)``."""
     u, delta, A, B, C = (tensors[k] for k in ("u", "delta", "A", "B", "C"))
     D, z, delta_bias = tensors["D"], tensors["z"], tensors["delta_bias"]
     for name, t in tensors.items():
@@ -126,20 +166,22 @@ def _check_scan_inputs(who: str, tensors: dict, fp32_names):
                              f"takes CUDA tensors (selective_scan runs the "
                              f"plain version on CPU)")
     if A.is_complex() or B.is_complex() or C.is_complex():
-        raise NotImplementedError("complex A/B/C (the S4D-complex mode) lands "
-                                  "in a later slice of the port")
-    if B.dim() != 3 or C.dim() != 3:
         raise NotImplementedError(
-            f"the kernel takes variable B/C of shape (batch, L, N); grouped "
-            f"or static B/C (got {tuple(B.shape)}, {tuple(C.shape)}) land in "
-            f"a later slice of the port")
+            "the kernels are real-only, as the Pallas ones: complex A / B / "
+            "C (the S4D-complex mode) run on selective_scan's chunked "
+            "backend")
     if (D is None) != (z is None):
         raise ValueError("the fused gate needs D and z together")
     batch, L, d = u.shape
     N = A.shape[1]
     if N > MAX_D_STATE:
-        raise NotImplementedError(f"d_state {N} > {MAX_D_STATE}: larger "
-                                  f"states land in a later slice of the port")
+        raise NotImplementedError(
+            f"d_state {N} > {MAX_D_STATE}, the most the kernels hold: such "
+            f"scans run on selective_scan's chunked backend "
+            f"(backend='auto' sends them there)")
+    G, bc = _groups(B, C, batch, L, N)
+    if d % G:
+        raise ValueError(f"d_inner {d} not divisible by {G} B/C groups")
     dtype = u.dtype
     if dtype not in _DTYPES:
         raise ValueError(f"u dtype {dtype}: the kernel takes float32 or bfloat16")
@@ -159,10 +201,9 @@ def _check_scan_inputs(who: str, tensors: dict, fp32_names):
     if D is not None and tuple(D.shape) != (d,):
         raise ValueError(f"D shape {tuple(D.shape)} != ({d},)")
     rows = [_row_stride("u", u, (batch, L, d)),
-            _row_stride("delta", delta, (batch, L, d)),
-            _row_stride("B", B, (batch, L, N)),
-            _row_stride("C", C, (batch, L, N)),
-            0 if z is None else _row_stride("z", z, (batch, L, d))]
+            _row_stride("delta", delta, (batch, L, d)), bc[0][0], bc[1][0],
+            0 if z is None else _row_stride("z", z, (batch, L, d)),
+            bc[0][1], bc[1][1], G]
     return batch, L, d, N, dtype, rows
 
 
@@ -170,12 +211,15 @@ def selective_scan_fwd_cuda(u, delta, A, B, C, delta_bias,
                             D: Optional[torch.Tensor] = None,
                             z: Optional[torch.Tensor] = None,
                             x0: Optional[torch.Tensor] = None,
-                            return_carries: bool = True):
-    """Launch the forward kernel; it always takes dt = softplus(delta +
-    delta_bias).
+                            return_carries: bool = True,
+                            delta_softplus: bool = True):
+    """Launch the forward kernel: dt = softplus(delta + delta_bias), or
+    delta + delta_bias without ``delta_softplus``.
 
     u, delta: (batch, L, d) float32 or bfloat16; A: (d, N) float32 real;
-    B, C: (batch, L, N) in u's dtype; delta_bias: (d,) float32;
+    B, C: (batch, L, N) or grouped (batch, L, G, N) in u's dtype (group g
+    serves channels [g d/G, (g+1) d/G); a 3-D one serves every group);
+    delta_bias: (d,) float32;
     D (d,) float32 together with z (batch, L, d): fused ``(y + u*D)*silu(z)``;
     x0: optional (batch, N, d) float32 seed state.
 
@@ -205,7 +249,7 @@ def selective_scan_fwd_cuda(u, delta, A, B, C, delta_bias,
     err = _kernel()(
         _ptr(u), _ptr(delta), _ptr(A), _ptr(delta_bias), _ptr(B), _ptr(C),
         _ptr(x0), _ptr(D), _ptr(z), _ptr(out), _ptr(carries), _ptr(x_last),
-        batch, L, d, N, *rows, _DTYPES[dtype], stream)
+        batch, L, d, N, *rows, int(delta_softplus), _DTYPES[dtype], stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_fwd kernel launch failed: CUDA "
                            f"error {err} at shape {(batch, L, d, N)} {dtype}")
@@ -219,8 +263,10 @@ selective_scan_fwd_cuda.launches = 0
 def selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C, carries, gy,
                             g_last: Optional[torch.Tensor] = None,
                             D: Optional[torch.Tensor] = None,
-                            z: Optional[torch.Tensor] = None):
-    """Launch the backward kernel (dt = softplus(delta + delta_bias)).
+                            z: Optional[torch.Tensor] = None,
+                            delta_softplus: bool = True):
+    """Launch the backward kernel (dt as ``selective_scan_fwd_cuda`` has it;
+    without ``delta_softplus`` ddelta takes no sigmoid factor).
 
     The inputs of ``selective_scan_fwd_cuda`` plus carries (batch,
     ceil(L/128), N, d) float32 (the forward's chunk-start states), gy
@@ -230,9 +276,10 @@ def selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C, carries, gy,
 
     Returns ``(du, ddelta, dA, dB, dC, dbias, dx0)`` and, with D and z,
     also ``(dz, dD)``, in the types of ``selective_scan_bwd_ref``: du,
-    ddelta, dz in u's dtype; dB, dC in B's dtype (the kernel's per-d-block
-    fp32 partials summed here); dA (d, N), dbias (d,), dx0 (batch, N, d),
-    dD (d,) float32.
+    ddelta, dz in u's dtype; dB, dC in B's and C's shapes and dtypes (the
+    kernel's per-block fp32 partials summed here, over a group's blocks for
+    a grouped one, over all for a 3-D one); dA (d, N), dbias (d,), dx0
+    (batch, N, d), dD (d,) float32.
     """
     gy = gy.contiguous()
     tensors = dict(u=u, delta=delta, A=A, B=B, C=C, delta_bias=delta_bias,
@@ -250,7 +297,9 @@ def selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C, carries, gy,
         raise ValueError(f"g_last shape {tuple(g_last.shape)} != "
                          f"{(batch, N, d)}")
     fn, channels_per_block = _bwd_kernel()
-    n_blocks = -(-d // channels_per_block(N))
+    G = rows[-1]
+    per_group = -(-(d // G) // channels_per_block(N))
+    n_blocks = G * per_group
     dev = u.device
     f32 = dict(dtype=torch.float32, device=dev)
     du = torch.empty((batch, L, d), dtype=dtype, device=dev)
@@ -266,19 +315,33 @@ def selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C, carries, gy,
              _ptr(C), _ptr(carries), _ptr(gy), _ptr(g_last), _ptr(D), _ptr(z),
              _ptr(du), _ptr(ddelta), _ptr(dz), _ptr(dBp), _ptr(dCp),
              _ptr(dAp), _ptr(dx0), _ptr(dDp),
-             batch, L, d, N, *rows, _DTYPES[dtype], stream)
+             batch, L, d, N, *rows, int(delta_softplus), _DTYPES[dtype],
+             stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: CUDA "
                            f"error {err} at shape {(batch, L, d, N)} {dtype}")
     selective_scan_bwd_cuda.launches += 1
     # the deterministic partial sums of scan_core_bwd_pallas, as torch.sum;
     # dbias sums the rounded ddelta in fp32 without an fp32 copy of it
-    grads = (du, ddelta, dAp.sum(0).t().contiguous(), dBp.sum(1).to(B.dtype),
-             dCp.sum(1).to(C.dtype), ddelta.sum((0, 1), dtype=torch.float32),
-             dx0)
+    grads = (du, ddelta, dAp.sum(0).t().contiguous(),
+             _sum_blocks(dBp, B, G, per_group),
+             _sum_blocks(dCp, C, G, per_group),
+             ddelta.sum((0, 1), dtype=torch.float32), dx0)
     if z is None:
         return grads
     return (*grads, dz, dDp.sum(0))
 
 
 selective_scan_bwd_cuda.launches = 0
+
+
+def _sum_blocks(partials, M, G, per_group):
+    """K2's (batch, G per_group, L, N) dB / dC partials summed in a fixed
+    order into M's shape and dtype: over each group's blocks into (batch,
+    L, G, N) for a grouped M, over all blocks into (batch, L, N) for a 3-D
+    one."""
+    if M.dim() == 3:
+        return partials.sum(1).to(M.dtype)
+    batch, _, L, N = partials.shape
+    return (partials.view(batch, G, per_group, L, N).sum(2)
+            .transpose(1, 2).contiguous().to(M.dtype))

@@ -7,25 +7,41 @@ per batch row and channel d, with an fp32 state of N values:
     x_t = exp(dt_t * A) * x_{t-1} + dt_t * u_t * B_t
     y_t = <C_t, x_t> (+ D * u_t) (* silu(z_t))
 
-``selective_scan`` sends CUDA tensors to the hand-written kernels and CPU
-tensors to the plain versions; ``backend="ref"`` forces the plain versions on
-any device (the tests and ``chip_smoke.py`` compare the two that way).
-Without a gradient it calls the forward alone (``selective_scan_fwd_cuda`` or
-``selective_scan_ref``).  When a gradient is needed it goes through
-``scan_with_grad``: the registered operator ``zigma::selective_scan_fwd``
-(``selective_scan_fwd_op``), whose forward keeps the chunk-start states and
-whose backward, attached by ``register_autograd``, is
-``selective_scan_bwd_cuda`` (CUDA) or ``selective_scan_bwd_ref`` (CPU).  As
-an operator the forward is visible to a selective-checkpoint policy, which
-can keep its outputs for the backward instead of recomputing them.  This slice covers real A with variable (batch, L, N) B/C -- the
-ZigMa path, with an optional seed state and the final state under autograd
-(``core_x0`` / ``core_full``, which sequence parallelism runs); complex A,
-grouped or static B/C are later slices and raise.
+The whole contract of the JAX function: dt = softplus(delta + bias) or,
+without ``delta_softplus``, delta + bias; B and C static (d, N), variable
+(batch, L, N) or grouped (batch, L, G, N) (group g over the d/G consecutive
+channels [g d/G, (g+1) d/G)), of mixed rank too; real A, or complex A with
+real or complex B / C (the S4D-complex mode: the state in complex64, ``y =
+2 Re<C, x>``).
+
+``selective_scan``'s backends mirror the JAX dispatch (``scan_backend``):
+``cuda`` (the hand-written kernels K1 / K2, the counterpart of ``pallas``)
+for a real variable or grouped scan that ``cuda_shape_supported`` accepts,
+on a CUDA tensor; ``ref`` (the plain sequential versions) for the same scan
+on a CPU tensor, or on request anywhere (the tests and ``chip_smoke.py``
+compare the two that way); ``chunked`` (``ops/scan_chunked.py``) for complex
+A and for d_state above what the kernels hold; ``assoc`` for static B / C.
+The choice follows shapes and dtypes alone: an explicit ``backend="cuda"``
+that the kernels cannot take raises.
+
+On ``cuda`` and ``ref``, without a gradient the forward runs alone
+(``selective_scan_fwd_cuda`` or ``selective_scan_ref``).  When a gradient is
+needed it goes through ``scan_with_grad``: the registered operator
+``zigma::selective_scan_fwd`` (``selective_scan_fwd_op``), whose forward
+keeps the chunk-start states and whose backward, attached by
+``register_autograd``, is ``selective_scan_bwd_cuda`` (CUDA) or
+``selective_scan_bwd_ref`` (CPU).  As an operator the forward is visible to
+a selective-checkpoint policy, which can keep its outputs for the backward
+instead of recomputing them.  The same operator runs ``core_x0`` /
+``core_full`` (a seed state, the final state under autograd), which
+sequence parallelism runs.  A complex scan under autograd on ``ref``
+differentiates through the plain forward with torch autograd (as JAX's
+``ref`` autodiffs through its ``lax.scan``).
 
 ``selective_state_update`` is one decode step of the same recurrence in
-plain fp32 torch ops (the JAX package writes it in jnp, not Pallas).  An LM
-prefill is ``selective_scan(..., return_last_state=True)``, which on CUDA is
-one K1 launch (and one K2 launch under a gradient).
+plain fp32 (complex64) torch ops (the JAX package writes it in jnp, not
+Pallas).  An LM prefill is ``selective_scan(..., return_last_state=True)``,
+which on CUDA is one K1 launch (and one K2 launch under a gradient).
 """
 
 from __future__ import annotations
@@ -35,32 +51,66 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from zigma_tpu_torch.ops.scan_cuda import (CARRY_EVERY, selective_scan_bwd_cuda,
+from zigma_tpu_torch.ops.scan_chunked import (check_complex, delta_prep, f32,
+                                              selective_scan_assoc,
+                                              selective_scan_chunked,
+                                              skip_and_gate)
+from zigma_tpu_torch.ops.scan_cuda import (CARRY_EVERY, cuda_shape_supported,
+                                           selective_scan_bwd_cuda,
                                            selective_scan_fwd_cuda)
 
 __all__ = ["selective_scan", "selective_scan_ref", "selective_scan_bwd_ref",
-           "selective_scan_fwd_op", "scan_with_grad", "core_x0", "core_full", "kernel_params",
-           "selective_state_update"]
+           "selective_scan_fwd_op", "scan_with_grad", "core_x0", "core_full",
+           "kernel_params", "selective_state_update", "scan_backend",
+           "selective_scan_flops", "BACKENDS"]
+
+BACKENDS = ("auto", "cuda", "chunked", "assoc", "ref")
 
 
-def _check_supported(A, B, C):
-    if A.is_complex() or B.is_complex() or C.is_complex():
-        raise NotImplementedError("complex A/B/C (the S4D-complex mode) lands "
-                                  "in a later slice of the port")
-    if B.dim() != 3 or C.dim() != 3:
-        raise NotImplementedError(
-            f"variable B/C of shape (batch, L, N) only; grouped or static B/C "
-            f"(got {tuple(B.shape)}, {tuple(C.shape)}) land in a later slice")
+def check_bc(A, B, C, d: int):
+    """The JAX function's checks of B and C against A and d_inner: complex
+    B / C need complex A, a grouped one's G divides d, grouped B and C agree
+    on G."""
+    check_complex(A, B, C)
+    for M in (B, C):
+        if M.dim() not in (2, 3, 4):
+            raise ValueError(f"bad B/C shape {tuple(M.shape)}")
+        if M.dim() == 4 and d % M.shape[2]:
+            raise ValueError(f"d_inner {d} not divisible by {M.shape[2]} "
+                             f"B/C groups")
+    if B.dim() == 4 and C.dim() == 4 and B.shape[2] != C.shape[2]:
+        raise ValueError(
+            f"grouped B/C must agree on n_groups (got {B.shape[2]} vs "
+            f"{C.shape[2]}; the reference kernel checks C against B's "
+            "n_groups, selective_scan.cpp)")
 
 
-def _dt(delta, delta_bias, delta_softplus):
-    """(dt, d dt / d pre) in fp32, pre = delta + bias."""
-    pre = delta.float()
-    if delta_bias is not None:
-        pre = pre + delta_bias.float()
-    if not delta_softplus:
-        return pre, torch.ones_like(pre)
-    return F.softplus(pre), torch.sigmoid(pre)  # threshold 20, as the kernels
+def _bc_at(M, d: int):
+    """``t -> M``'s values at step t, broadcastable against a (batch, N, d)
+    state: static (d, N) the same at every step, (batch, L, N) shared by
+    every channel, grouped (batch, L, G, N) repeated over each group's d/G
+    channels."""
+    M = f32(M)
+    if M.dim() == 2:
+        Mt = M.t()
+        return lambda t: Mt
+    if M.dim() == 3:
+        return lambda t: M[:, t, :, None]
+    Mg = M.transpose(2, 3)  # (batch, L, N, G)
+    return lambda t: Mg[:, t].repeat_interleave(d // M.shape[2], dim=-1)
+
+
+def _bc_grad_add(dM, t: int, g):
+    """Add g (batch, N, d), the gradient of step t's per-channel B (or C),
+    into dM in M's layout: summed over batch and accumulated for static
+    (d, N), over channels for (batch, L, N), over each group's channels
+    for (batch, L, G, N)."""
+    if dM.dim() == 2:
+        dM += g.sum(0).t()
+    elif dM.dim() == 3:
+        dM[:, t] = g.sum(2)
+    else:
+        dM[:, t] = g.unflatten(2, (dM.shape[2], -1)).sum(3).transpose(1, 2)
 
 
 def selective_scan_ref(u, delta, A, B, C,
@@ -69,32 +119,38 @@ def selective_scan_ref(u, delta, A, B, C,
                        delta_bias: Optional[torch.Tensor] = None,
                        delta_softplus: bool = False,
                        x0: Optional[torch.Tensor] = None):
-    """Plain sequential scan in fp32, step by step over L.
+    """Plain sequential scan in fp32 (complex64 with complex A), step by
+    step over L: the counterpart of the JAX ``selective_scan_ref`` and K1's
+    plain version.
 
-    u, delta: (batch, L, d); A: (d, N); B, C: (batch, L, N); D: (d,);
-    z: (batch, L, d); delta_bias: (d,); x0: optional (batch, N, d) seed.
-    Returns ``(out, carries, x_last)`` with the kernel's layouts: out in u's
-    dtype, carries (batch, ceil(L/128), N, d) fp32 chunk-start states,
-    x_last (batch, N, d) fp32.  Counts its calls in
-    ``selective_scan_ref.calls``.
+    u, delta: (batch, L, d); A: (d, N), real or complex; B, C: static
+    (d, N), variable (batch, L, N) or grouped (batch, L, G, N), each of its
+    own rank, complex only with complex A; D: (d,); z: (batch, L, d);
+    delta_bias: (d,); x0: optional (batch, N, d) seed.  With complex A,
+    ``y = 2 Re<C, x>``.  Returns ``(out, carries, x_last)`` with the
+    kernel's layouts: out in u's dtype, carries (batch, ceil(L/128), N, d)
+    chunk-start states, x_last (batch, N, d), both fp32 (complex64).  Counts
+    its calls in ``selective_scan_ref.calls``.
     """
-    _check_supported(A, B, C)
-    selective_scan_ref.calls += 1
     batch, L, d = u.shape
+    check_bc(A, B, C, d)
+    selective_scan_ref.calls += 1
     N = A.shape[1]
     uf = u.float()
-    dt, _ = _dt(delta, delta_bias, delta_softplus)
-    At = A.float().t()  # (N, d)
-    Bf, Cf = B.float(), C.float()
-    x = (torch.zeros((batch, N, d), dtype=torch.float32, device=u.device)
-         if x0 is None else x0.float().clone())
+    dt, _ = delta_prep(delta, delta_bias, delta_softplus)
+    At = f32(A).t()  # (N, d)
+    B_at, C_at = _bc_at(B, d), _bc_at(C, d)
+    cplx = A.is_complex()
+    x = (torch.zeros((batch, N, d), dtype=At.dtype, device=u.device)
+         if x0 is None else f32(x0).clone())
     carries, ys = [], []
     for t in range(L):
         if t % CARRY_EVERY == 0:
             carries.append(x)
         x = (torch.exp(dt[:, t, None, :] * At) * x
-             + (dt[:, t] * uf[:, t])[:, None, :] * Bf[:, t, :, None])
-        ys.append(torch.einsum("bnd,bn->bd", x, Cf[:, t]))
+             + (dt[:, t] * uf[:, t])[:, None, :] * B_at(t))
+        y = (x * C_at(t)).sum(1)
+        ys.append(2.0 * y.real if cplx else y)
     out = torch.stack(ys, dim=1)
     if D is not None:
         out = out + uf * D.float()
@@ -111,8 +167,9 @@ def selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries, gy,
                            D: Optional[torch.Tensor] = None,
                            z: Optional[torch.Tensor] = None,
                            delta_softplus: bool = True):
-    """Plain sequential adjoint of the scan; the signature and return values
-    of ``scan_core_bwd_pallas``.
+    """Plain sequential adjoint of the real scan; the signature and return
+    values of ``scan_core_bwd_pallas``, with B and C of any rank
+    ``selective_scan_ref`` takes.
 
     carries: the forward's (batch, ceil(L/128), N, d) chunk-start states;
     gy: cotangent of the output (batch, L, d) -- of the gated output when D
@@ -121,23 +178,29 @@ def selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries, gy,
     states are recomputed from its carry, then the adjoint
     ``g_t = gy_t * C_t + exp(dt_{t+1} A) g_{t+1}`` walks it in reverse.
 
-    Returns ``(du, ddelta, dA, dB, dC, dbias, dx0)`` and, fused, also
-    ``(dz, dD)``: du, ddelta, dz in the dtype of u, delta, z; dB, dC in B's
-    and C's dtype; dA (d, N), dbias (d,), dx0 (batch, N, d), dD (d,) fp32.
-    dbias sums ddelta after its rounding to delta's dtype, as the JAX kernel
-    does.  Counts its calls in ``selective_scan_bwd_ref.calls``.
+    Without ``delta_softplus`` ``ddelta = <dla, A> + u <g, B>`` (no sigmoid
+    factor).  Returns ``(du, ddelta, dA, dB, dC, dbias, dx0)`` and, fused,
+    also ``(dz, dD)``: du, ddelta, dz in the dtype of u, delta, z; dB, dC
+    in B's and C's shapes and dtypes (a grouped one summed over each
+    group's channels); dA (d, N), dbias (d,), dx0 (batch, N, d), dD (d,)
+    fp32.  dbias sums ddelta after its rounding to delta's dtype, as the JAX
+    kernel does.  Counts its calls in ``selective_scan_bwd_ref.calls``.
     """
-    _check_supported(A, B, C)
+    batch, L, d = u.shape
+    check_bc(A, B, C, d)
+    if A.is_complex():
+        raise ValueError("the plain adjoint is real, as K2: a complex scan's "
+                         "gradient runs on the chunked backend, or through "
+                         "torch autograd on backend='ref'")
     if (D is None) != (z is None):
         raise ValueError("the fused gate needs D and z together")
     selective_scan_bwd_ref.calls += 1
-    batch, L, d = u.shape
     N = A.shape[1]
     uf = u.float()
-    dt, sig = _dt(delta, delta_bias, delta_softplus)
+    dt, sig = delta_prep(delta, delta_bias, delta_softplus)
     dtu = dt * uf
     At = A.float().t()  # (N, d)
-    Bf, Cf = B.float(), C.float()
+    B_at, C_at = _bc_at(B, d), _bc_at(C, d)
     g_out = gy.float()
     fused = z is not None
     if fused:
@@ -150,8 +213,8 @@ def selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries, gy,
         gyr = g_out
     du = torch.empty_like(uf)
     dd = torch.empty_like(uf)
-    dB = torch.empty((batch, L, N), dtype=torch.float32, device=u.device)
-    dC = torch.empty_like(dB)
+    dB = torch.zeros(B.shape, dtype=torch.float32, device=u.device)
+    dC = torch.zeros(C.shape, dtype=torch.float32, device=u.device)
     dA = torch.zeros((N, d), dtype=torch.float32, device=u.device)
     c = (torch.zeros((batch, N, d), dtype=torch.float32, device=u.device)
          if g_last is None else g_last.float().clone())
@@ -161,20 +224,21 @@ def selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries, gy,
         xs, decays = [carries[:, k].float()], []  # xs[j]: state before l0+j
         for t in range(l0, l1):
             decay = torch.exp(dt[:, t, None, :] * At)
-            xs.append(decay * xs[-1] + dtu[:, t, None, :] * Bf[:, t, :, None])
+            xs.append(decay * xs[-1] + dtu[:, t, None, :] * B_at(t))
             decays.append(decay)
         for j in reversed(range(l1 - l0)):
             t = l0 + j
-            g = gyr[:, t, None, :] * Cf[:, t, :, None] + c  # (batch, N, d)
+            Bt, Ct = B_at(t), C_at(t)
+            g = gyr[:, t, None, :] * Ct + c  # (batch, N, d)
             dla = g * decays[j] * xs[j]  # d loss / d (dt * A)
-            gB = (g * Bf[:, t, :, None]).sum(1)
+            gB = (g * Bt).sum(1)
             dd[:, t] = ((dla * At).sum(1) + gB * uf[:, t]) * sig[:, t]
             du[:, t] = dt[:, t] * gB
             dA += (dla * dt[:, t, None, :]).sum(0)
-            dB[:, t] = (g * dtu[:, t, None, :]).sum(2)
-            dC[:, t] = (gyr[:, t, None, :] * xs[j + 1]).sum(2)
+            _bc_grad_add(dB, t, g * dtu[:, t, None, :])
+            _bc_grad_add(dC, t, gyr[:, t, None, :] * xs[j + 1])
             if fused:
-                y[:, t] = (Cf[:, t, :, None] * xs[j + 1]).sum(1)
+                y[:, t] = (Ct * xs[j + 1]).sum(1)
             c = decays[j] * g
     dd = dd.to(delta.dtype)
     rest = (dA.t().contiguous(), dB.to(B.dtype), dC.to(C.dtype),
@@ -202,21 +266,17 @@ def selective_scan_fwd_op(u: torch.Tensor, delta: torch.Tensor,
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The scan forward keeping what its backward needs: ``(out, carries,
     x_last)`` as ``selective_scan_fwd_cuda`` returns them.  A, D and the
-    bias as ``kernel_params`` gives them (the bias always a tensor), x0 an
-    optional (batch, N, d) fp32 seed.  K1 on a CUDA tensor (it raises
-    without softplus: no fallback); the plain version on the CPU or with
-    ``use_ref``."""
+    bias as ``kernel_params`` gives them (the bias always a tensor), B and C
+    (batch, L, N) or (batch, L, G, N) (static too with ``use_ref``), x0 an
+    optional (batch, N, d) fp32 seed.  K1 on a CUDA tensor; the plain
+    version on the CPU or with ``use_ref``."""
     with torch.no_grad():
         if use_ref or u.device.type != "cuda":
             return selective_scan_ref(u, delta, A, B, C, D, z, delta_bias,
                                       delta_softplus, x0=x0)
-        if not delta_softplus:
-            raise NotImplementedError(
-                "the CUDA kernels always take dt = softplus(delta + "
-                "delta_bias); a scan without softplus lands in a later "
-                "slice of the port")
         return selective_scan_fwd_cuda(u, delta, A, B, C, delta_bias, D, z,
-                                       x0=x0, return_carries=True)
+                                       x0=x0, return_carries=True,
+                                       delta_softplus=delta_softplus)
 
 
 @selective_scan_fwd_op.register_fake
@@ -250,7 +310,7 @@ def _scan_backward(ctx, gy, g_carries, g_last):
         g_last = g_last.to(torch.float32).contiguous()
     if not ctx.use_ref and u.device.type == "cuda":
         g = selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C, carries,
-                                    gy, g_last, D, z)
+                                    gy, g_last, D, z, ctx.delta_softplus)
     else:
         g = selective_scan_bwd_ref(u, delta, delta_bias, A, B, C, carries, gy,
                                    g_last, D, z, ctx.delta_softplus)
@@ -281,8 +341,12 @@ def scan_with_grad(u, delta, A, B, C, delta_bias, D, z, delta_softplus: bool,
     caller's dtypes through the casts.
 
     Returns out (batch, L, d) in u's dtype, and with ``return_last_state``
-    also the final state (batch, N, d) fp32.
+    also the final state (batch, N, d) fp32.  Real A, B, C only (the
+    kernels' contract; complex scans run on the chunked backend).
     """
+    if A.is_complex() or B.is_complex() or C.is_complex():
+        raise ValueError("the scan operator is real, as K1 / K2: complex A "
+                         "runs on selective_scan's chunked backend")
     A, D, bias = kernel_params(A, D, delta_bias)
     if x0 is not None:
         x0 = x0.to(torch.float32).contiguous()
@@ -298,7 +362,7 @@ def core_x0(u, delta, A, B, C, delta_bias=None, x0=None,
     (batch, L, d) in u's dtype; under autograd x0 gets its gradient
     (K2's ``dx0``).  One K1 launch forward and one K2 launch backward on
     CUDA (``backend="ref"``: the plain versions)."""
-    _check_supported(A, B, C)
+    check_bc(A, B, C, u.shape[2])
     return scan_with_grad(u, delta, A, B, C, delta_bias, None, None,
                           delta_softplus, _use_ref(u, backend), x0)
 
@@ -309,7 +373,7 @@ def core_full(u, delta, A, B, C, delta_bias=None, x0=None,
     ``_core_full``.  Returns ``(y, x_last)``, x_last (batch, N, d) fp32,
     both differentiable: the final state's cotangent seeds K2's reverse
     walk (``g_last``)."""
-    _check_supported(A, B, C)
+    check_bc(A, B, C, u.shape[2])
     return scan_with_grad(u, delta, A, B, C, delta_bias, None, None,
                           delta_softplus, _use_ref(u, backend), x0, True)
 
@@ -320,36 +384,79 @@ def _use_ref(u, backend):
     return backend == "ref" or u.device.type == "cpu"
 
 
+def scan_backend(u, A, B, C, backend: str = "auto") -> str:
+    """The backend ``selective_scan`` runs for these inputs: ``backend``
+    itself unless it is "auto"; else, as the JAX dispatch, ``chunked`` for
+    complex A with variable B / C, ``assoc`` for static B / C (complex or
+    not), and for a real variable or grouped scan the kernels (``cuda`` on a
+    CUDA tensor, their plain versions ``ref`` on a CPU one) where
+    ``cuda_shape_supported`` accepts its shape and dtype, else
+    ``chunked``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} "
+                         f"({' | '.join(BACKENDS)})")
+    if backend != "auto":
+        return backend
+    variable = B.dim() >= 3 and C.dim() >= 3
+    if not variable:
+        return "assoc"
+    if A.is_complex():
+        return "chunked"
+    G = max(M.shape[2] if M.dim() == 4 else 1 for M in (B, C))
+    _, L, d = u.shape
+    if cuda_shape_supported(L, d // G, A.shape[1], u.dtype):
+        return "cuda" if u.device.type == "cuda" else "ref"
+    return "chunked"
+
+
+def _squeeze_groups(B, C):
+    """(batch, L, 1, N) B / C as (batch, L, N), as the JAX dispatch does,
+    unless the other one is grouped."""
+    if all(M.dim() != 4 or M.shape[2] == 1 for M in (B, C)):
+        B, C = (M[:, :, 0] if M.dim() == 4 else M for M in (B, C))
+    return B, C
+
+
 def selective_scan(u, delta, A, B, C,
                    D: Optional[torch.Tensor] = None,
                    z: Optional[torch.Tensor] = None,
                    delta_bias: Optional[torch.Tensor] = None,
                    delta_softplus: bool = False,
                    return_last_state: bool = False,
-                   backend: str = "auto"):
-    """Selective scan with backend dispatch (the JAX function's signature).
+                   backend: str = "auto",
+                   chunk: int = 128):
+    """Selective scan with backend dispatch (the JAX function's signature,
+    ``cuda`` in place of ``pallas``).
 
-    backend: "auto" (CUDA tensor -> the kernels, CPU tensor -> the plain
-    versions) or "ref" (the plain versions anywhere).  On a CUDA tensor
-    "auto" has no fallback: the kernels launch or raise (they need
-    delta_softplus).  With D and z both given the gate is fused into the
-    kernels; with only one of them the skip term or the gate is composed
-    around the core scan in torch ops, as ``selective_scan_pallas`` does in
-    jnp, with a gradient or without.  When a gradient is needed the scan
-    goes through ``scan_with_grad`` (the registered op K1 / K2 back).
-    Returns out (batch, L, d) in u's dtype, and with ``return_last_state``
-    also the final state (batch, d, N) fp32 (the JAX function's layout).
+    backend: "auto" | "cuda" | "chunked" | "assoc" | "ref", resolved by
+    ``scan_backend``; ``chunk`` is the chunked backend's steps a chunk.  On
+    a CUDA tensor "auto" has no fallback: what it sends to the kernels
+    launches or raises.  On ``cuda`` / ``ref``: with D and z both given the
+    gate is fused into the kernels; with only one of them the skip term or
+    the gate is composed around the core scan in torch ops, as
+    ``selective_scan_pallas`` does in jnp, with a gradient or without; when
+    a gradient is needed the scan goes through ``scan_with_grad`` (the
+    registered op, K1 / K2 back).  Returns out (batch, L, d) in u's dtype,
+    and with ``return_last_state`` also the final state (batch, d, N) fp32
+    (complex64 with complex A; the JAX function's layout).
     """
-    _check_supported(A, B, C)
-    use_ref = _use_ref(u, backend)
-    if not use_ref and not delta_softplus:
-        raise NotImplementedError(
-            "the CUDA kernels always take dt = softplus(delta + delta_bias); "
-            "a scan without softplus lands in a later slice of the port")
+    check_bc(A, B, C, u.shape[2])
+    B, C = _squeeze_groups(B, C)
+    backend = scan_backend(u, A, B, C, backend)
+    if backend == "chunked":
+        return selective_scan_chunked(u, delta, A, B, C, D, z, delta_bias,
+                                      delta_softplus, return_last_state, chunk)
+    if backend == "assoc":
+        return selective_scan_assoc(u, delta, A, B, C, D, z, delta_bias,
+                                    delta_softplus, return_last_state)
+    if backend == "cuda" and A.is_complex():
+        raise ValueError("backend='cuda' is real-only; complex A runs on "
+                         "'chunked', 'assoc' or 'ref' (auto picks chunked)")
+    use_ref = backend == "ref"
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad
         for t in (u, delta, A, B, C, D, z, delta_bias))
-    if needs_grad:
+    if needs_grad and not A.is_complex():
         # the final state from a zero seed, as selective_scan_pallas runs
         # _core_full; the gate is fused where D and z come together
         fused = D is not None and z is not None
@@ -359,7 +466,7 @@ def selective_scan(u, delta, A, B, C,
             return_last_state)
         y, x_last = res if return_last_state else (res, None)
         if not fused:
-            y = _skip_and_gate(y, u, D, z)
+            y = skip_and_gate(y, u, D, z)
         return (y, x_last.transpose(1, 2)) if return_last_state else y
     if use_ref:
         out, _, x_last = selective_scan_ref(u, delta, A, B, C, D, z,
@@ -370,9 +477,9 @@ def selective_scan(u, delta, A, B, C,
         A32, D32, bias = kernel_params(A, D if fused else None, delta_bias)
         out, _, x_last = selective_scan_fwd_cuda(
             u, delta, A32, B, C, bias, D32, z if fused else None,
-            return_carries=False)
+            return_carries=False, delta_softplus=delta_softplus)
         if not fused:
-            out = _skip_and_gate(out, u, D, z)
+            out = skip_and_gate(out, u, D, z)
     return (out, x_last.transpose(1, 2)) if return_last_state else out
 
 
@@ -383,21 +490,22 @@ def selective_state_update(state, x, dt, A, B, C,
                            dt_softplus: bool = False):
     """One decode step, the counterpart of ``zigma_tpu/ops/selective_scan.py
     ::selective_state_update``.  state: (batch, d, N); x, dt, z: (batch, d);
-    A: (d, N); B, C: (batch, N); D, dt_bias: (d,).  In fp32:
-    ``dA = exp(dt A)``, ``state' = state dA + dt x B``, ``y = <state', C>
-    (+ D x) (* silu(z))``.  Returns ``(y in x's dtype, state' fp32)``."""
-    if any(t is not None and t.is_complex() for t in (state, A, B, C)):
-        raise NotImplementedError("complex A/B/C (the S4D-complex mode) lands "
-                                  "in a later slice of the port")
+    A: (d, N); B, C: (batch, N); D, dt_bias: (d,).  In fp32 (complex64 where
+    A, B, C or the state is complex): ``dA = exp(dt A)``, ``state' = state dA
+    + dt x B``, ``y = <state', C>`` (``2 Re<state', C>`` when complex, as
+    every scan backend, so a prefill and the steps after it agree)
+    ``(+ D x) (* silu(z))``.  Returns ``(y in x's dtype, state')``."""
     dtf = dt.float()
     if dt_bias is not None:
         dtf = dtf + dt_bias.float()
     if dt_softplus:
         dtf = F.softplus(dtf)
-    dA = torch.exp(dtf[..., None] * A.float())                 # (batch, d, N)
-    dBx = (dtf * x.float())[..., None] * B.float()[:, None, :]
-    state = state.float() * dA + dBx
-    y = torch.einsum("bdn,bn->bd", state, C.float())
+    dA = torch.exp(dtf[..., None] * f32(A))                    # (batch, d, N)
+    dBx = (dtf * x.float())[..., None] * f32(B)[:, None, :]
+    state = f32(state) * dA + dBx
+    y = torch.einsum("bdn,bn->bd", state, f32(C).to(state.dtype))
+    if y.is_complex():
+        y = 2.0 * y.real
     if D is not None:
         y = y + D.float() * x.float()
     if z is not None:
@@ -417,13 +525,13 @@ def kernel_params(A, D, delta_bias):
     return f32(A), None if D is None else f32(D), bias
 
 
-def _skip_and_gate(y, u, D, z):
-    """``(y + u * D) * silu(z)`` in fp32, each factor only where given, as
-    ``selective_scan_pallas`` composes it around the core scan in jnp;
-    returns u's dtype."""
-    y = y.float()
-    if D is not None:
-        y = y + u.float() * D.float()
-    if z is not None:
-        y = y * F.silu(z.float())
-    return y.to(u.dtype)
+def selective_scan_flops(batch: int, L: int, d_inner: int, N: int,
+                         with_D: bool = True, with_z: bool = False) -> int:
+    """Analytic FLOP count per scan, matching the reference's fvcore rule
+    (model_zigma.py:1140-1170): 9*B*L*D*N plus skip/gate terms."""
+    flops = 9 * batch * L * d_inner * N
+    if with_D:
+        flops += batch * d_inner * L
+    if with_z:
+        flops += batch * d_inner * L
+    return flops

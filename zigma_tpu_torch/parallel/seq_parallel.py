@@ -34,7 +34,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from zigma_tpu_torch.ops.selective_scan import (scan_with_grad,
-                                                _skip_and_gate, _use_ref,
+                                                skip_and_gate, _use_ref,
                                                 core_full, core_x0)
 from zigma_tpu_torch.ops.ssd import ssd_scan
 from zigma_tpu_torch.parallel.collectives import all_gather_stack
@@ -84,7 +84,7 @@ def _scan_pass2(u, delta, A, B, C, D, z, delta_bias, x_in, delta_softplus,
         return scan_with_grad(u, delta, A, B, C, delta_bias, D, z,
                               delta_softplus, use_ref, x_in)
     y = core_x0(u, delta, A, B, C, delta_bias, x_in, delta_softplus, backend)
-    return _skip_and_gate(y, u, D, z)
+    return skip_and_gate(y, u, D, z)
 
 
 def selective_scan_seq_parallel(u, delta, A, B, C, D=None, z=None,
