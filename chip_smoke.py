@@ -245,6 +245,26 @@ Phases, each of which fails loudly (non-zero exit, no result line):
                  4 steps each from one checkpoint with open adaLN gates
                  (through ``cli.convert``): 0 K1 / K2 against 48 / 24 a
                  step, the losses against each other, steps/s.
+43. chained training -- (after the train phase) ``cli.train`` on the
+                 flagship, batch 16, ``chain_steps=4``, 12 steps: one eager
+                 chain, the capture of one CUDA graph of 4 whole steps, two
+                 replays, the whole run under the profiler.  Its K1 / K2
+                 launches are its CUPTI kernel records, 48 / 24 a step
+                 (the eager chain and both replays; the capture launches
+                 nothing and the wrappers count nothing under it); the
+                 wrapper counts see the eager chain, 48 / 24 a step; one
+                 more replay profiled alone holds 48 / 24 a step and calls
+                 no wrapper; the plain versions never.  The same run's 12
+                 plain steps built with the capturable AdamW: losses at
+                 steps 4, 8 and 12 and every parameter and EMA tensor
+                 bit-equal, and the step generator's state equal; against
+                 ``cli.train`` with ``chain_steps=1`` (the default AdamW):
+                 the gaps printed; the chained checkpoint strict into the
+                 sampler's model and resumed for a step under
+                 ``chain_steps=1``; steps/s chained (two replays timed
+                 without the profiler) and plain, capture seconds, peak
+                 memory and the graph's pool, device busy of a replay
+                 against an eager step.
 
 Every count is set to 0 just before its path runs and read just after; the
 plain versions must run 0 times on every path.
@@ -267,10 +287,15 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+
+def peak(key):
+    """An H100 peak from the port's one table of them
+    (``zigma_tpu_torch.utils.profiling.H100_PEAK``: ``hbm_bytes_per_sec``,
+    ``fp32_flops``, ``bf16_flops``)."""
+    from zigma_tpu_torch.utils.profiling import H100_PEAK
+    return H100_PEAK[key]
+
+
 # special-function unit (exp, log, ...) results per clock per SM, compute
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput)
@@ -354,6 +379,9 @@ TOL_PIPE_LOSS = 1e-2
 TOL_PIPE_OUT = 1e-5
 STEPS, DEPTH, N_BATCHES, BATCH = 50, 24, 2, 16
 TRAIN_STEPS = 8
+# chained training: chain_steps 4 over 12 flagship steps, one eager chain
+# (the capture's warm-up) and two replays of the captured graph
+CHAIN, CHAIN_TRAIN_STEPS = 4, 12
 DOPRI5_BATCH = LIK_BATCH = 4
 # the scan modes phase: grouped B / C (G groups of D / G channels) in K1 /
 # K2 at the flagship shape, and the torch backends' shapes (d_state 512 is
@@ -623,8 +651,8 @@ def least_time(n_bytes, flops, transc):
     import torch
     clk_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    fma_ms = flops / FP32_FLOPS_PER_S * 1e3
+    bytes_ms = n_bytes / peak("hbm_bytes_per_sec") * 1e3
+    fma_ms = flops / peak("fp32_flops") * 1e3
     sfu_ms = transc / (SFU_OPS_PER_CLK_PER_SM * n_sms * clk_mhz * 1e6) * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"),
                              (max(fma_ms, sfu_ms), "operations"))
@@ -1178,7 +1206,7 @@ def main_path_phase(gen, tmp):
     flops = zigma_flops(BATCH, 32 * 32, model.embed_dim, model.depth)
     rate = flops / (fwd_ms * 1e-3)
     print(f"forward {fwd_ms:.3f} ms: {flops / 1e9:.1f} GFLOP (zigma_flops) at "
-          f"{rate / 1e12:.1f} TFLOP/s, {100 * rate / BF16_FLOPS_PER_S:.2f}% "
+          f"{rate / 1e12:.1f} TFLOP/s, {100 * rate / peak('bf16_flops'):.2f}% "
           f"of the bf16 peak", flush=True)
     if not rel <= TOL_FORWARD:
         fail("flagship forward: kernel and plain scan disagree")
@@ -1253,6 +1281,305 @@ def train_phase(gen):
     return state, dict(steps_per_s=steps_s, images_per_s=steps_s * BATCH,
                        peak_gb=peak_gb, held_gb=held_gb, k1=k1, k2=k2,
                        losses=losses)
+
+
+def device_rows(prof):
+    """The device-side kernels of a profile (``key_averages`` rows; a CUDA
+    graph's replayed kernels are CUPTI records like any others): the CPU
+    ops that launched them, and annotated ranges such as the optimizer's
+    step, carry the same time again (the filter of the profiler's own
+    table)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def scan_kernel_records(rows):
+    """(K1, K2) kernel records among ``device_rows``."""
+    return (sum(e.count for e in rows if "selective_scan_fwd" in e.key),
+            sum(e.count for e in rows if "selective_scan_bwd" in e.key))
+
+
+def raw_scan_kernel_records(prof):
+    """(K1, K2) kernel records of a finished profile, read from its raw
+    CUPTI records: a whole training run holds some 1e5 of them, which
+    ``key_averages`` would first parse into Python events for tens of
+    seconds."""
+    from torch.autograd import DeviceType
+    k1 = k2 = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            name = e.name()
+            k1 += "selective_scan_fwd" in name
+            k2 += "selective_scan_bwd" in name
+    return k1, k2
+
+
+def plain_reference_run(args, n_steps):
+    """``n_steps`` plain steps of the ``cli.train`` run that ``args`` give
+    (``chain_steps=1``: its model, seed, synthetic batches, transport, loss
+    and step generator), built here with the AdamW of a captured run
+    (``capturable=True``).  Returns (state, {step: loss} at the chain
+    boundaries, the step generator)."""
+    import torch
+    from zigma_tpu_torch.cli import train as train_cli
+    from zigma_tpu_torch.train import (LATENT_SCALE, TrainState,
+                                       make_diffusion_loss_fn, train_chain)
+    from zigma_tpu_torch.transport import create_transport
+    cfg = train_cli.load_config(train_cli.DEFAULT_CONFIG_DIR, "default", args)
+    device, seed = torch.device("cuda"), int(cfg.get("global_seed", 0))
+    model = train_cli.build_model(
+        cfg, device=device,
+        generator=torch.Generator(device=device).manual_seed(seed))
+    transport = create_transport(
+        cfg.train.get("path_type", "Linear"),
+        cfg.train.get("prediction", "velocity"),
+        cfg.train.get("loss_weight"),
+        cfg.train.get("train_eps"), cfg.train.get("sample_eps"))
+    state = TrainState.create(model, lr=float(cfg.optim.get("lr", 1e-4)),
+                              weight_decay=float(cfg.optim.get("wd", 0.0)),
+                              capturable=True)
+    batches = train_cli.synthetic_batches(cfg, seed)
+    next(batches)  # the example batch cli.train takes first
+    loss_fn = make_diffusion_loss_fn(
+        model, transport,
+        latent_scale=LATENT_SCALE if cfg.get("is_latent", True) else None)
+    step_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    losses = {}
+    for step in range(1, n_steps + 1):
+        m = train_chain(state, loss_fn,
+                        [train_cli._to_device(next(batches), device)],
+                        step_gen, float(cfg.get("max_grad_norm", 2.0)),
+                        float(cfg.get("ema_rate", 0.9999)))
+        if step % CHAIN == 0:
+            losses[step] = float(m["loss"])
+    return state, losses, step_gen
+
+
+def chained_train_phase(gen, tmp):
+    """``cli.train`` at the flagship, batch 16, ``chain_steps`` CHAIN over
+    CHAIN_TRAIN_STEPS steps (one eager chain, the capture, two replays of
+    the graph) under the profiler: this run's K1 / K2 launches are its
+    CUPTI kernel records (the eager chain and every replay; the capture
+    launches nothing), and the wrapper counts, which see only the eager
+    chain, must hold 48 / 24 a step of it.  One more replay, profiled
+    alone, must hold 48 / 24 a step and call no wrapper.  Then the same
+    run's plain steps (``chain_steps=1``) with the chained run's AdamW
+    (``plain_reference_run``) and ``cli.train`` with ``chain_steps=1`` and
+    the default one.  Losses at the chain boundaries, every parameter and
+    EMA tensor and the step generator's state against the plain runs'; the
+    chained checkpoint strictly into the sampler's model and resumed for
+    one step under ``chain_steps=1``; steps a second (the chained run's
+    from two replays timed after it, as the profiler slows the run's own),
+    capture seconds, peak memory and the graph's pool, and the device-busy
+    share of one replay against one eager step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from zigma_tpu_torch.cli import sample as sample_cli
+    from zigma_tpu_torch.cli import train as train_cli
+
+    args = ["model=zigzag8_b1_pe2", "data=synthetic",
+            f"data.batch_size={BATCH}", f"log_every={CHAIN}",
+            f"data.train_steps={CHAIN_TRAIN_STEPS}"]
+
+    def snap(state):
+        # the state after the last step, before anything else steps it (on
+        # the host, so the next run's peak holds none of it)
+        return {w: [p.detach().cpu() for p in getattr(state, w).parameters()]
+                for w in ("model", "ema")}
+
+    def run(name, *extra, profiled=False):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9  # by earlier phases
+        argv = [*args, *extra, f"results_dir={os.path.join(tmp, name)}"]
+        reset_counts()
+        t0 = time.perf_counter()
+        if profiled:  # the device's records only: kernels, copies
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = train_cli.main(argv)
+                torch.cuda.synchronize()
+        else:
+            res = train_cli.main(argv)
+            torch.cuda.synchronize()
+        res.update(wall=time.perf_counter() - t0, counts=read_counts(),
+                   held_gb=held,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   gen_state=res["generator"].get_state(),
+                   losses={r["step"]: r["loss"] for r in res["records"]},
+                   # after the first chain (the warm-up and the capture):
+                   # equal intervals of CHAIN steps
+                   steps_per_s=len(res["records"][1:]) / sum(
+                       1 / r["steps_per_sec"] for r in res["records"][1:]),
+                   snap=snap(res["state"]))
+        if profiled:
+            t0 = time.perf_counter()
+            res["records_k"] = raw_scan_kernel_records(prof)
+            res["count_s"] = time.perf_counter() - t0
+        return res
+
+    def gaps(a, b):
+        return {w: max(float((p - q).abs().max()) for p, q in zip(a[w], b[w]))
+                for w in ("model", "ema")}
+
+    t_phase = time.perf_counter()
+    c = run("chained", f"chain_steps={CHAIN}", profiled=True)
+    chain = c["chain"]
+    capture_s = chain.capture_seconds
+    n_replays = CHAIN_TRAIN_STEPS // CHAIN - 1
+    k1, k2 = c["records_k"]
+    want_counts = (48 * CHAIN, 24 * CHAIN, 0, 0)
+    want_k = (48 * CHAIN_TRAIN_STEPS, 24 * CHAIN_TRAIN_STEPS)
+    print(f"chained train CLI (chain_steps {CHAIN}) under the profiler: "
+          f"{CHAIN_TRAIN_STEPS} steps in {c['wall']:.2f} s (model build "
+          f"included; its kernel records read in {c['count_s']:.2f} s), "
+          f"{c['steps_per_s']:.4f} steps/s over the replays, "
+          f"capture {capture_s:.3f} s; losses {c['losses']}; K1 / K2 kernel "
+          f"records of the whole run {k1} / {k2} (expected {want_k}: the "
+          f"eager chain and {n_replays} replays); K1, K2, plain scan, plain "
+          f"backward wrapper counts {c['counts']} (expected {want_counts}: "
+          f"the eager chain; the capture launches nothing)", flush=True)
+    if (k1, k2) != want_k or c["counts"] != want_counts:
+        fail(f"chained training: K1 / K2 kernel records {(k1, k2)}, expected "
+             f"{want_k}; wrapper counts {c['counts']}, expected "
+             f"{want_counts}")
+    boundaries = list(range(CHAIN, CHAIN_TRAIN_STEPS + 1, CHAIN))
+    if sorted(c["losses"]) != boundaries or not all(
+            map(math.isfinite, c["losses"].values())):
+        fail(f"chained training losses {c['losses']}")
+    try:  # the graph's private pool: the segments the allocator gave it
+        pool = tuple(chain.graph.pool())
+        pool_gb = sum(seg["total_size"]
+                      for seg in torch.cuda.memory._snapshot()["segments"]
+                      if tuple(seg["segment_pool_id"]) == pool) / 1e9
+    except (KeyError, TypeError) as e:
+        pool_gb = None
+        print(f"graph pool: not measured ({e!r})")
+    cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
+                                 args[:1])
+    fresh = sample_cli.build_model(cfg, device="cuda")
+    fresh.load_state_dict(sample_cli.load_state_dict(c["checkpoint"]),
+                          strict=True)
+    del fresh
+
+    # the graph's steps a second without the profiler: two chains as
+    # cli.train runs them (host batches copied in, one replay, the loss
+    # read), after the run's last step
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.standard_normal((BATCH, 4, 32, 32)).astype(np.float32)}
+            for _ in range(CHAIN)]
+    t0 = time.perf_counter()
+    for _ in range(2):
+        float(chain(host)["loss"])
+    chained_sps = 2 * CHAIN / (time.perf_counter() - t0)
+    # one replay (after one warm-up replay) under the profiler: its kernels
+    reset_counts()
+    rows, wall_us = profile_rows(lambda: chain(host))
+    replay_busy, replay_wall, replay_launches = print_profile(
+        f"one replay of the chain ({CHAIN} flagship steps, batch {BATCH})",
+        rows, wall_us)
+    per_replay = scan_kernel_records(rows)
+    if read_counts() != (0, 0, 0, 0) or per_replay != (48 * CHAIN, 24 * CHAIN):
+        fail(f"a replay ran K1 / K2 {per_replay} times (expected "
+             f"{(48 * CHAIN, 24 * CHAIN)}) and called the wrappers "
+             f"{read_counts()} times (expected none)")
+    eager_busy, eager_wall, eager_launches = profile_phase(
+        f"one eager flagship step of the chained state (batch {BATCH}, "
+        f"capturable AdamW)", train_step_fn(c["state"], gen,
+                                            (BATCH, 4, 32, 32)))
+    print(f"chained K1 / K2 launches in the {CHAIN_TRAIN_STEPS}-step run: "
+          f"{k1} / {k2} (its kernel records; {c['counts'][0]} / "
+          f"{c['counts'][1]} wrapper launches in the eager chain, so "
+          f"{(k1 - c['counts'][0]) // (n_replays * CHAIN)} / "
+          f"{(k2 - c['counts'][1]) // (n_replays * CHAIN)} a step in the "
+          f"graph; {per_replay[0]} / {per_replay[1]} in one more replay "
+          f"profiled alone, 0 plain calls); {chained_sps:.4f} steps/s over "
+          f"2 chains without the profiler; device busy "
+          f"{100 * replay_busy / replay_wall:.1f}% of a replay "
+          f"({replay_busy / CHAIN:.3f} ms a step, {replay_launches} kernels) "
+          f"against {100 * eager_busy / eager_wall:.1f}% of one eager step "
+          f"({eager_busy:.3f} ms, {eager_launches} kernels)", flush=True)
+    del chain, c["chain"], c["state"]
+    gc.collect()  # the graph and its pool go with the last reference
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    ref, ref_losses, ref_gen = plain_reference_run(args, CHAIN_TRAIN_STEPS)
+    ref_s = time.perf_counter() - t0
+    p1 = dict(losses=ref_losses, snap=snap(ref),
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if read_counts() != (48 * CHAIN_TRAIN_STEPS, 24 * CHAIN_TRAIN_STEPS, 0,
+                         0):
+        fail(f"the plain reference steps ran K1 / K2 / plain "
+             f"{read_counts()}")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    p0 = run("plain", "chain_steps=1")
+    g1, g0 = gaps(c["snap"], p1["snap"]), gaps(c["snap"], p0["snap"])
+    g10 = gaps(p1["snap"], p0["snap"])
+    same_gen = (torch.equal(c["gen_state"], ref_gen.get_state())
+                and torch.equal(c["gen_state"], p0["gen_state"]))
+    print(f"chained against its plain steps with the capturable AdamW "
+          f"({ref_s:.2f} s): "
+          f"losses {p1['losses']} (bit-equal {c['losses'] == p1['losses']}), "
+          f"largest param / EMA gap {g1['model']:.3e} / {g1['ema']:.3e}; "
+          f"against cli.train chain_steps=1 (the default AdamW): losses "
+          f"{p0['losses']} (bit-equal {c['losses'] == p0['losses']}), gaps "
+          f"{g0['model']:.3e} / {g0['ema']:.3e} (the two AdamWs against each "
+          f"other {g10['model']:.3e} / {g10['ema']:.3e}); step generator's "
+          f"state equal after {CHAIN_TRAIN_STEPS} steps: {same_gen}",
+          flush=True)
+    if c["losses"] != p1["losses"] or g1["model"] or g1["ema"]:
+        fail(f"the chained run is not bit-equal to its plain steps with the "
+             f"same AdamW: losses {c['losses']} against {p1['losses']}, "
+             f"gaps {g1}")
+    if not same_gen:
+        fail("the step generator's state after the chained run differs from "
+             "the plain runs': the graph's draws did not follow it")
+    del p0["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    r = train_cli.main([*args[:3], "chain_steps=1", "log_every=1",
+                        f"data.train_steps={CHAIN_TRAIN_STEPS + 1}",
+                        f"results_dir={os.path.join(tmp, 'chained')}"])
+    group = r["state"].opt.param_groups[0]
+    step_dev = {st["step"].device.type
+                for st in r["state"].opt.state.values()}
+    print(f"the chained checkpoint loaded with strict=True into the sampler's "
+          f"model and resumed under chain_steps=1: steps "
+          f"{[x['step'] for x in r['records']]}, loss "
+          f"{[round(x['loss'], 4) for x in r['records']]}, AdamW capturable "
+          f"{group['capturable']}, step counts on {step_dev}", flush=True)
+    if ([x["step"] for x in r["records"]] != [CHAIN_TRAIN_STEPS + 1]
+            or not math.isfinite(r["records"][0]["loss"])
+            or group["capturable"] or step_dev != {"cpu"}):
+        fail(f"resuming the chained checkpoint under chain_steps=1: "
+             f"{r['records']}, capturable {group['capturable']}, steps on "
+             f"{step_dev}")
+    del r
+    smi = nvidia_smi()
+    print(f"chained training {chained_sps:.4f} steps/s against "
+          f"{p0['steps_per_s']:.4f} plain (cli.train chain_steps=1, steps "
+          f"{CHAIN + 1}-{CHAIN_TRAIN_STEPS}); peak device memory "
+          f"{c['peak_gb']:.2f} GB chained (the graph's pool "
+          f"{'not measured' if pool_gb is None else f'{pool_gb:.2f} GB'}) "
+          f"against {p0['peak_gb']:.2f} GB plain ({p1['peak_gb']:.2f} GB "
+          f"with the capturable AdamW), of which {c['held_gb']:.2f} / "
+          f"{p0['held_gb']:.2f} GB held before the chained / plain run; "
+          f"capture {capture_s:.3f} s; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return dict(steps_per_s=chained_sps,
+                profiled_steps_per_s=c["steps_per_s"],
+                plain_steps_per_s=p0["steps_per_s"], capture_s=capture_s,
+                peak_gb=c["peak_gb"], plain_peak_gb=p0["peak_gb"],
+                pool_gb=pool_gb, k1=k1, k2=k2,
+                busy_replay=replay_busy / replay_wall,
+                busy_eager=eager_busy / eager_wall)
 
 
 def grad_check_phase(gen, what, x_shape, **model_kw):
@@ -2019,7 +2346,7 @@ def vae_clip_phase(tmp):
             flops = count_flops(vae, fn)
             ms = cuda_ms(fn, reps=3, groups=3)
             times[what] = dict(ms=ms, flops=flops,
-                               bound_ms=flops / FP32_FLOPS_PER_S * 1e3)
+                               bound_ms=flops / peak("fp32_flops") * 1e3)
         z1024 = torch.randn(1, 4, 128, 128, generator=gc, device="cuda")
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -2028,7 +2355,7 @@ def vae_clip_phase(tmp):
         ms = cuda_ms(fn, reps=1, groups=3)
         peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
         times["decode 1024^2 x 1"] = dict(
-            ms=ms, flops=flops, bound_ms=flops / FP32_FLOPS_PER_S * 1e3,
+            ms=ms, flops=flops, bound_ms=flops / peak("fp32_flops") * 1e3,
             peak_gb=peak_gb)
     for what, t in times.items():
         print(f"SD-VAE {what}{'' if '1024' in what else f' x {BATCH} at 256^2'}"
@@ -2052,7 +2379,7 @@ def vae_clip_phase(tmp):
           f" M params, fp32) on {BATCH} x {N_CTX} token ids: output "
           f"{tuple(got.shape)}, max |card - CPU| / max |CPU| {clip_err:.3e} "
           f"(limit {TOL_CLIP}); {clip_ms:.3f} ms, {clip_flops / 1e9:.1f} "
-          f"GFLOP, fp32 bound {clip_flops / FP32_FLOPS_PER_S * 1e3:.3f} ms",
+          f"GFLOP, fp32 bound {clip_flops / peak('fp32_flops') * 1e3:.3f} ms",
           flush=True)
     if tuple(got.shape) != (BATCH, N_CTX, D_CTX):
         fail(f"CLIP output shape {tuple(got.shape)}")
@@ -2491,7 +2818,7 @@ def metric_nets_phase(tmp):
                  f"{EVAL_BS} pairs of 256^2")):
             flops = count_flops(model, fn)
             ms = cuda_ms(fn, reps=3, groups=3)
-            bound = flops / FP32_FLOPS_PER_S * 1e3
+            bound = flops / peak("fp32_flops") * 1e3
             times[what] = dict(ms=ms, flops=flops, bound_ms=bound, work=work)
             print(f"{what}, {work}: {ms:.3f} ms, {flops / 1e9:.1f} GFLOP "
                   f"({flops / 1e9 / (VIDEO_BATCH if what == 'I3D' else EVAL_BS):.2f}"
@@ -2978,11 +3305,11 @@ def _kind(key):
             "elementwise / copy")
 
 
-def profile_phase(what, fn):
-    """Device time of one call of ``fn`` (after one warm-up call), by kind
-    and by kernel.  Returns (device busy ms, wall ms, kernel launches)."""
+def profile_rows(fn):
+    """One call of ``fn`` (after one warm-up call) under the profiler: its
+    device-side kernels (``key_averages`` rows; a CUDA graph's replayed
+    kernels are CUPTI records like any others) and its wall time in us."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2992,12 +3319,18 @@ def profile_phase(what, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side kernels only: the CPU ops that launched them, and
-    # annotated ranges such as the optimizer's step, carry the same time
-    # again (the filter of the profiler's own table)
-    rows = [e for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)]
+    return device_rows(prof), wall_us
+
+
+def profile_phase(what, fn):
+    """Device time of one call of ``fn`` (after one warm-up call), by kind
+    and by kernel.  Returns (device busy ms, wall ms, kernel launches)."""
+    return print_profile(what, *profile_rows(fn))
+
+
+def print_profile(what, rows, wall_us):
+    """``profile_rows``' device time by kind and by kernel; returns (device
+    busy ms, wall ms, kernel launches)."""
     total = sum(e.self_device_time_total for e in rows)
     if total <= 0:
         fail("the profiler saw no device time")
@@ -4126,6 +4459,10 @@ def main():
         model, x, t, e2e = main_path_phase(gen, tmp)
         phase("train (main path of the training slice)")
         state, tr = train_phase(gen)
+        with ram_dir() as rtmp:
+            phase(f"chained training (chain_steps {CHAIN}: one CUDA graph "
+                  f"of {CHAIN} flagship steps, replayed)")
+            ctr = chained_train_phase(gen, rtmp)
         phase("grad check")
         grad_check_phase(gen, "flagship-width depth 2", (2, 4, 32, 32),
                          depth=2, img_dim=32, patch_size=1,
@@ -4310,7 +4647,8 @@ def main():
                                "train_pipeline_1x4": pl["k1"],
                                "train_from_converted": cv["k1"],
                                "scan_modes_call": 1,
-                               "train_chunked_backend": ct["k1"]},
+                               "train_chunked_backend": ct["k1"],
+                               "train_chained": ctr["k1"]},
              max_abs_err=k1["max_abs_err"], ms=k1["ms"],
              ms_with_carries=k1["ms_with_carries"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
@@ -4347,7 +4685,8 @@ def main():
                                "train_pipeline_1x4": pl["k2"],
                                "train_from_converted": cv["k2"],
                                "scan_modes_call": 1,
-                               "train_chunked_backend": ct["k2"]},
+                               "train_chunked_backend": ct["k2"],
+                               "train_chained": ctr["k2"]},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None,
@@ -4419,7 +4758,13 @@ def main():
           + "; " + "; ".join(f"{k} {v['ms']:.3f} / {v['ms_with_grad']:.3f} ms"
                              for k, v in tb.items())
           + f" (forward / with the backward); chunked-scan training "
-          f"{ct['steps_per_s']:.4f} steps/s")
+          f"{ct['steps_per_s']:.4f} steps/s; chained training (chain_steps "
+          f"{CHAIN}, one CUDA graph a chain) {ctr['steps_per_s']:.4f} steps/s "
+          f"against {ctr['plain_steps_per_s']:.4f} plain, device busy "
+          f"{100 * ctr['busy_replay']:.1f}% of a replay against "
+          f"{100 * ctr['busy_eager']:.1f}% of an eager step, capture "
+          f"{ctr['capture_s']:.3f} s, peak {ctr['peak_gb']:.2f} GB against "
+          f"{ctr['plain_peak_gb']:.2f} GB")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

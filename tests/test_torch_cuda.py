@@ -922,3 +922,190 @@ def test_pipelined_stage_on_the_card(gen):
     params = dict(stage.named_parameters())
     for n, p in ref.named_parameters():
         assert _rel(params[n].grad, p.grad) <= TOL_FP32, n
+
+
+# the model configurations a chain is captured over: full remat with a label
+# drop, selective remat, no remat, text with use_pe 3, Mamba-2, the chunked
+# scan backend, video
+CHAIN_KINDS = {
+    "remat": dict(num_classes=10, class_dropout_prob=0.1),
+    "scan_out": dict(num_classes=10, class_dropout_prob=0.1,
+                     remat_policy="scan_out"),
+    "no_remat": dict(num_classes=10, class_dropout_prob=0.1,
+                     use_checkpoint=False),
+    "text_pe3": dict(has_text=True, d_context=48, use_pe=3),
+    "ssm2": dict(ssm_cfg=dict(ssm_version=2, d_state=16, headdim=32)),
+    "chunked": dict(scan_backend="chunked", scan_chunk=16),
+    "video": dict(depth=3, patch_size=2, scan_type="zzvideo_sst",
+                  video_frames=4, tpe=True, num_classes=5,
+                  class_dropout_prob=0.5),
+}
+
+
+def _tiny_trainer(kind, capturable):
+    """A tiny fp32 ZigMa of ``CHAIN_KINDS[kind]`` (depth 2 unless it says,
+    remat, drop-path 0.1) on the card, with its state and loss."""
+    from zigma_tpu_torch.train import TrainState, make_diffusion_loss_fn
+    from zigma_tpu_torch.transport import create_transport
+    kw = dict(in_channels=4, embed_dim=64, depth=2, img_dim=8,
+              scan_type="zigzagN8", use_pe=2, use_checkpoint=True,
+              drop_path_rate=0.1)
+    kw.update(CHAIN_KINDS[kind])
+    model = ZigMa(**kw, device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(3))
+    state = TrainState.create(model, capturable=capturable)
+    return state, make_diffusion_loss_fn(model, create_transport())
+
+
+def _tiny_batches(kind, n):
+    """``n`` host batches of ``kind``'s model: latents, and class labels or
+    caption features."""
+    g, cfg = torch.Generator().manual_seed(4), CHAIN_KINDS[kind]
+    shape = (4, 4, 4, 8, 8) if "video_frames" in cfg else (4, 4, 8, 8)
+    out = []
+    for _ in range(n):
+        b = {"x": torch.randn(shape, generator=g)}
+        if "num_classes" in cfg:
+            b["y"] = torch.randint(0, cfg["num_classes"], (4,), generator=g)
+        elif cfg.get("has_text"):
+            b["y"] = torch.randn(4, 77, cfg["d_context"], generator=g)
+        out.append(b)
+    return out
+
+
+def _k_counts():
+    return (scan_cuda.selective_scan_fwd_cuda.launches,
+            scan_cuda.selective_scan_bwd_cuda.launches)
+
+
+@pytest.mark.parametrize("kind", list(CHAIN_KINDS))
+def test_captured_chain_matches_plain_steps(gen, kind):
+    """Three chains of 2 through ``CapturedChain`` (the eager warm-up
+    chain, the capture, two replays) against 6 ``train_step`` calls with the
+    same capturable AdamW and step generator seed: losses at the chain
+    ends, every parameter and EMA tensor and the generator's state
+    bit-equal.  The wrappers count the eager chain's launches (those of
+    the first two plain steps) and nothing under the capture, and a replay
+    calls no wrapper (K1 / K2 are in the graph).  The text model's
+    attention runs SDPA's math backend here: the fused backward
+    accumulates with atomics and differs from run to run in the last bits,
+    graph or not (its capture is
+    ``test_captured_text_chain_with_fused_attention``)."""
+    from contextlib import nullcontext
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from zigma_tpu_torch.train import CapturedChain, train_step
+    batches = _tiny_batches(kind, 6)
+    with (sdpa_kernel(SDPBackend.MATH) if kind == "text_pe3"
+          else nullcontext()):
+        state, loss_fn = _tiny_trainer(kind, True)
+        g_chain = torch.Generator(device="cuda").manual_seed(5)
+        chain = CapturedChain(state, loss_fn, 2, g_chain)
+        got, counted = [], []
+        for i in range(3):
+            before = _k_counts()
+            got.append(chain(batches[2 * i:2 * i + 2])["loss"].item())
+            counted.append(tuple(a - b for a, b in zip(_k_counts(), before)))
+        assert state.step == 6 and chain.capture_seconds > 0
+        ref, ref_loss = _tiny_trainer(kind, True)
+        g_ref = torch.Generator(device="cuda").manual_seed(5)
+        want = []
+        before = _k_counts()
+        for i, b in enumerate(batches):
+            m = train_step(ref, ref_loss,
+                           {k: v.cuda() for k, v in b.items()}, g_ref)
+            if i == 1:
+                eager = tuple(a - b for a, b in zip(_k_counts(), before))
+            if i % 2:
+                want.append(m["loss"].item())
+    assert counted == [eager, (0, 0), (0, 0)]
+    assert got == want
+    for which in ("model", "ema"):
+        for p, q in zip(getattr(state, which).parameters(),
+                        getattr(ref, which).parameters()):
+            assert torch.equal(p, q), which
+    assert torch.equal(g_chain.get_state(), g_ref.get_state())
+
+
+def test_captured_text_chain_with_fused_attention(gen):
+    """The text model's chain captured and replayed under SDPA's default
+    backends, as a user's run takes them (the fused attention inside the
+    graph): finite losses, the model stepped, and a replay calls no kernel
+    wrapper."""
+    from zigma_tpu_torch.train import CapturedChain
+    batches = _tiny_batches("text_pe3", 6)
+    state, loss_fn = _tiny_trainer("text_pe3", True)
+    start = [p.detach().clone() for p in state.model.parameters()]
+    chain = CapturedChain(state, loss_fn, 2,
+                          torch.Generator(device="cuda").manual_seed(5))
+    losses = [chain(batches[:2])["loss"].item()]
+    for i in (1, 2):
+        before = _k_counts()
+        losses.append(chain(batches[2 * i:2 * i + 2])["loss"].item())
+        assert _k_counts() == before
+    assert state.step == 6 and all(map(math.isfinite, losses))
+    assert any(not torch.equal(p, q)
+               for p, q in zip(state.model.parameters(), start))
+
+
+def test_captured_chain_refusals_and_checkpoints_both_ways(gen, tmp_path):
+    """A default AdamW is refused; a stale graph (an optimizer state dict
+    loaded after the capture) raises; a chained checkpoint resumes with a
+    default AdamW (step counts on the host) and a plain one under a new
+    chain (step counts on the card)."""
+    from zigma_tpu_torch.train import (CapturedChain, restore_checkpoint,
+                                       save_checkpoint, train_step)
+    state, loss_fn = _tiny_trainer("remat", False)
+    with pytest.raises(ValueError, match="capturable=True"):
+        CapturedChain(state, loss_fn, 2,
+                      torch.Generator(device="cuda").manual_seed(0))
+    chained, c_loss = _tiny_trainer("remat", True)
+    chain = CapturedChain(chained, c_loss, 2,
+                          torch.Generator(device="cuda").manual_seed(0))
+    batches = _tiny_batches("remat", 4)
+    chain(batches[:2])
+    chain(batches[2:])
+    path = save_checkpoint(str(tmp_path / "c"), chained)
+    # the file's moments are new tensors: the graph's would be freed
+    chained.opt.load_state_dict(torch.load(path, weights_only=False)["opt"])
+    with pytest.raises(RuntimeError, match="replaced since the capture"):
+        chain(batches[:2])
+    restore_checkpoint(path, state)
+    assert state.step == 4 and not state.opt.param_groups[0]["capturable"]
+    assert {st["step"].device.type for st in state.opt.state.values()} == {
+        "cpu"}
+    train_step(state, loss_fn, {k: v.cuda() for k, v in batches[0].items()})
+    fresh, f_loss = _tiny_trainer("remat", True)
+    restore_checkpoint(save_checkpoint(str(tmp_path / "p"), state), fresh)
+    assert fresh.opt.param_groups[0]["capturable"]
+    assert {st["step"].device.type for st in fresh.opt.state.values()} == {
+        "cuda"}
+    again = CapturedChain(fresh, f_loss, 2,
+                          torch.Generator(device="cuda").manual_seed(1))
+    for _ in range(2):
+        assert math.isfinite(again(batches[:2])["loss"].item())
+    assert fresh.step == 9
+
+
+def test_profiling_helpers_on_the_card(gen):
+    """``device_memory_stats`` per card, ``differential_time`` by CUDA
+    events, and a training forward's scans counted by the registered K1
+    operator's FLOP rule on the card as on the CPU."""
+    from zigma_tpu_torch.ops.selective_scan import selective_scan_flops
+    from zigma_tpu_torch.utils.profiling import (cost_analysis,
+                                                 device_memory_stats,
+                                                 differential_time)
+    stats = device_memory_stats()
+    assert set(stats) == {f"cuda:{i}"
+                          for i in range(torch.cuda.device_count())}
+    assert stats["cuda:0"]["bytes_limit"] > stats["cuda:0"]["bytes_in_use"] > 0
+    x = torch.randn(1024, 1024, generator=gen, device="cuda")
+    assert differential_time(lambda a: a @ a / 1024, x) > 0
+    model = ZigMa(in_channels=4, embed_dim=64, depth=2, img_dim=8,
+                  scan_type="zigzagN8", use_pe=2, device="cuda", generator=gen)
+    xs = torch.randn(2, 4, 8, 8, generator=gen, device="cuda")
+    ca = cost_analysis(lambda: model(xs, torch.full((2,), 0.5, device="cuda")))
+    mixer = model.blocks[0].mixer
+    assert ca["flops_by_op"]["zigma.selective_scan_fwd"] == 2 * \
+        selective_scan_flops(2, 64, mixer.d_inner, mixer.d_state, True, True)

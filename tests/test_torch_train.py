@@ -372,8 +372,12 @@ def test_train_cli_refuses_what_this_slice_lacks(tmp_path):
     for extra in (["data=churches256"], ["data.sample_fid_n=8"]):
         train_cli._check_supported(sample_cli.load_config(
             sample_cli.DEFAULT_CONFIG_DIR, "default", [*TINY, *extra]))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _train(tmp_path, "chain_steps=4")
+    # chain_steps is ported: on the CPU a chain is 4 eager steps, logged at
+    # the chain boundary
+    res = _train(tmp_path / "chain", "data.train_steps=4", "chain_steps=4",
+                 "log_every=1")
+    assert res["state"].step == 4 and res["chain"] is None
+    assert [r["step"] for r in res["records"]] == [4]
     # in-training sampling with the configured ODE method, the default
     # dopri5 included (fewer save points than the config's 250)
     res = _train(tmp_path, "data.train_steps=2", "sample_every=1",

@@ -136,7 +136,10 @@ def drop_path(x, rate: float, keep_mask):
     itself)."""
     mask = keep_mask.reshape((-1,) + (1,) * (x.dim() - 1))
     x = torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device))
-    keep = torch.tensor(max(1.0 - rate, 1e-6), dtype=x.dtype, device=x.device)
+    # filled on the device: a copy from the host could not be captured in a
+    # CUDA graph (train.CapturedChain)
+    keep = torch.full((), max(1.0 - rate, 1e-6), dtype=x.dtype,
+                      device=x.device)
     return x / keep
 
 

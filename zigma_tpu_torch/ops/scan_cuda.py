@@ -19,7 +19,11 @@ launches on ``torch.cuda.current_stream()`` without synchronising, raises
 if ``cudaGetLastError()`` reports a failed launch, and counts its launches
 in ``<wrapper>.launches``.  One wrapper call takes any
 batch and counts one launch: past the grid's 65535 sequences the C entry
-point launches the kernel on slices of the batch.
+point launches the kernel on slices of the batch.  A call made while the
+stream is captured into a CUDA graph launches nothing (the kernel is
+recorded into the graph) and counts nothing; the graph's replays launch it
+without calling the wrapper, so they are counted from the profiler's kernel
+records, not here.
 """
 
 from __future__ import annotations
@@ -253,7 +257,8 @@ def selective_scan_fwd_cuda(u, delta, A, B, C, delta_bias,
     if err != 0:
         raise RuntimeError(f"selective_scan_fwd kernel launch failed: CUDA "
                            f"error {err} at shape {(batch, L, d, N)} {dtype}")
-    selective_scan_fwd_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        selective_scan_fwd_cuda.launches += 1
     return out, carries, x_last
 
 
@@ -320,7 +325,8 @@ def selective_scan_bwd_cuda(u, delta, delta_bias, A, B, C, carries, gy,
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: CUDA "
                            f"error {err} at shape {(batch, L, d, N)} {dtype}")
-    selective_scan_bwd_cuda.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        selective_scan_bwd_cuda.launches += 1
     # the deterministic partial sums of scan_core_bwd_pallas, as torch.sum;
     # dbias sums the rounded ddelta in fp32 without an fp32 copy of it
     grads = (du, ddelta, dAp.sum(0).t().contiguous(),

@@ -9,7 +9,8 @@ the newest file by mtime).  ``restore_checkpoint`` restores all of it:
 weights, EMA, the optimizer's moments and step counts, the step and
 best_fid.  Across processes (``TrainState.layout``) the file is the same:
 full tensors under the one-process names, whatever DDP, FSDP2 or tensor
-parallelism hold on each rank.
+parallelism hold on each rank.  A file written with a capturable AdamW (a
+chained run on the card) and one written without load into either.
 """
 
 from __future__ import annotations
@@ -68,6 +69,7 @@ def restore_checkpoint(path: str, state):
     run's args), so load only checkpoints you trust."""
     device = next(state.model.parameters()).device
     ckpt = torch.load(path, map_location=device, weights_only=False)
+    capturable = [g.get("capturable", False) for g in state.opt.param_groups]
     if state.layout is None:
         state.model.load_state_dict(ckpt["model"])
         state.ema.load_state_dict(ckpt["ema"])
@@ -76,6 +78,15 @@ def restore_checkpoint(path: str, state):
         state.layout.load_state(state.model, ckpt["model"])
         state.layout.load_state(state.ema, ckpt["ema"])
         state.layout.load_optimizer(state.opt, state.model, ckpt["opt"])
+    # the file's parameter groups carry its writer's ``capturable``: keep
+    # this optimizer's, with each step count where it keeps them (on the
+    # parameter's device when capturable, else on the host)
+    for group, cap in zip(state.opt.param_groups, capturable):
+        group["capturable"] = cap
+        for p in group["params"]:
+            st = state.opt.state.get(p, {})
+            if torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(p.device if cap else "cpu")
     state.step = int(ckpt["train_steps"])
     state.best_fid = float(ckpt["best_fid"])
     return state
