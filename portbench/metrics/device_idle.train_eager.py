@@ -1,0 +1,3 @@
+"""device_idle.train_eager: the device's idle share of the measured window (readers.idle)."""
+
+from portbench.readers import idle as read  # noqa: F401
