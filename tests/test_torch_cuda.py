@@ -1089,23 +1089,87 @@ def test_captured_chain_refusals_and_checkpoints_both_ways(gen, tmp_path):
 
 
 def test_profiling_helpers_on_the_card(gen):
-    """``device_memory_stats`` per card, ``differential_time`` by CUDA
-    events, and a training forward's scans counted by the registered K1
-    operator's FLOP rule on the card as on the CPU."""
-    from zigma_tpu_torch.ops.selective_scan import selective_scan_flops
-    from zigma_tpu_torch.utils.profiling import (cost_analysis,
-                                                 device_memory_stats,
+    """``device_memory_stats`` per card (read with a tensor on the card, so
+    that the test holds when it runs first) and ``differential_time`` by
+    CUDA events."""
+    from zigma_tpu_torch.utils.profiling import (device_memory_stats,
                                                  differential_time)
+    x = torch.randn(1024, 1024, generator=gen, device="cuda")
     stats = device_memory_stats()
     assert set(stats) == {f"cuda:{i}"
                           for i in range(torch.cuda.device_count())}
     assert stats["cuda:0"]["bytes_limit"] > stats["cuda:0"]["bytes_in_use"] > 0
-    x = torch.randn(1024, 1024, generator=gen, device="cuda")
     assert differential_time(lambda a: a @ a / 1024, x) > 0
-    model = ZigMa(in_channels=4, embed_dim=64, depth=2, img_dim=8,
-                  scan_type="zigzagN8", use_pe=2, device="cuda", generator=gen)
-    xs = torch.randn(2, 4, 8, 8, generator=gen, device="cuda")
-    ca = cost_analysis(lambda: model(xs, torch.full((2,), 0.5, device="cuda")))
-    mixer = model.blocks[0].mixer
-    assert ca["flops_by_op"]["zigma.selective_scan_fwd"] == 2 * \
-        selective_scan_flops(2, 64, mixer.d_inner, mixer.d_state, True, True)
+
+
+def _device_ops(prof):
+    """(name, start_ns, end_ns) of a profile's device operations."""
+    from torch.autograd import DeviceType
+    return sorted((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() != DeviceType.CPU and e.duration_ns() > 0)
+
+
+def test_span_shares_the_device_traces_clock(gen):
+    """A span around ``torch.cuda._sleep`` and the synchronise after it
+    contains the kernel's interval in a trace of the device's activity
+    alone, and opens at most 100 us before the kernel starts.  The first
+    span and launch of a profiler session take 50-140 us more, once: a
+    warm-up span goes first."""
+    from torch.profiler import ProfilerActivity, profile
+    from zigma_tpu_torch.utils.profiling import recording, span
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        with recording() as spans:
+            with span("warm-up"):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            with span("sleep") as s:
+                torch.cuda._sleep(20_000_000)  # ~10 ms
+                torch.cuda.synchronize()
+    ops = _device_ops(prof)
+    name, a, b = max(ops, key=lambda op: op[2] - op[1])
+    assert b - a > 1_000_000, ops
+    assert s in spans and s.start_ns <= a and b <= s.end_ns, (s, a, b)
+    assert a - s.start_ns <= 100_000, (s, a, b)
+
+
+def test_spans_of_a_step_on_the_card(gen):
+    """A tiny remat step recorded on the card: the recompute runs on the
+    autograd engine's device thread and nests under
+    ``train_step.backward``; the root counts 2 K1 launches a block (the
+    forward and the recompute) and one K2, and the allocator's counts."""
+    from zigma_tpu_torch.train import train_step
+    from zigma_tpu_torch.utils.profiling import ALLOCATOR_COUNTS, recording
+    state, loss_fn = _tiny_trainer("remat", capturable=False)
+    batch = {k: v.cuda() for k, v in _tiny_batches("remat", 1)[0].items()}
+    step_gen = torch.Generator(device="cuda").manual_seed(5)
+    train_step(state, loss_fn, batch, step_gen)
+    torch.cuda.synchronize()
+    with recording() as spans:
+        train_step(state, loss_fn, batch, step_gen)
+        torch.cuda.synchronize()
+    spans = [s for s in spans if s.name != "host.gc"]
+    root, = [s for s in spans if s.parent is None]
+    parts = sorted((s for s in spans if s.parent == root.id),
+                   key=lambda s: s.start_ns)
+    assert [s.name for s in parts] == [
+        "train_step.forward", "train_step.backward", "train_step.clip",
+        "train_step.optimizer", "train_step.ema"]
+    backward = parts[1]
+    recomputed = [s for s in spans if s.name == "model.block"
+                  and s.parent == backward.id]
+    depth = state.model.depth
+    assert sorted(s.attrs["index"] for s in recomputed) == list(range(depth))
+    assert all(s.thread != root.thread and s.unit == root.id
+               for s in recomputed)
+    assert all(backward.start_ns <= s.start_ns <= s.end_ns <= backward.end_ns
+               for s in recomputed)
+    assert root.counters["k1_launches"] == 2 * depth
+    assert root.counters["k2_launches"] == depth
+    stats = torch.cuda.memory_stats()
+    for k in ALLOCATOR_COUNTS:
+        assert (root.counters[k] is None) == (k not in stats), k

@@ -61,6 +61,9 @@ The forward is three pieces, ``embed`` (patches, position tables,
 conditioning), ``run_blocks`` and ``head`` (the final add-norm, the
 FinalLayer and unpatchify): the seams at which ``parallel/pipeline.py``
 splits the model into stages, as the JAX forward's ``_stage`` ones.
+Each piece is a span (``utils.profiling.span``): ``model.forward``
+around ``model.embed``, one ``model.block`` a block (its ``index``; a
+remat recompute records it again, in the backward) and ``model.head``.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ from zigma_tpu_torch.ops.norms import add_norm, layer_norm
 from zigma_tpu_torch.ops.paths import build_layer_paths, parallel_scan_perms
 from zigma_tpu_torch.parallel.collectives import (copy_to_group,
                                                   row_parallel_linear)
+from zigma_tpu_torch.utils.profiling import span
 
 __all__ = ["ZigMa", "ZigMaBlock", "CrossAttention", "FinalLayer",
            "ZIGMA_PRESETS", "zigma_model", "zigma_flops", "modulate",
@@ -221,9 +225,10 @@ class ZigMaBlock(nn.Module):
     def __init__(self, dim: int, mixer_cfg: dict, has_text: bool = False,
                  rms_norm: bool = True, norm_epsilon: float = 1e-5,
                  residual_in_fp32: bool = True, n_layer: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 index: int = 0):
         super().__init__()
-        self.dtype, self.has_text = dtype, has_text
+        self.dtype, self.has_text, self.index = dtype, has_text, index
         self.kind = "rms" if rms_norm else "layer"
         self.eps, self.residual_in_fp32 = norm_epsilon, residual_in_fp32
         self.norm = _Norm(dim, bias=not rms_norm, device=device)
@@ -248,18 +253,21 @@ class ZigMaBlock(nn.Module):
     def forward(self, x, residual, c, drop=None, text=None):
         """``drop``: optional ``(rate, keep_mask)`` stochastic depth on x;
         ``text``: the (B, S, dim) context of a text block."""
-        if drop is not None:
-            x = drop_path(x, *drop)
-        x, residual = add_norm(x, self.norm.weight, self.norm.bias, residual,
-                               kind=self.kind, eps=self.eps, prenorm=True,
-                               residual_in_fp32=self.residual_in_fp32)
-        mod = dense(self.adaLN_modulation[1], F.silu(c), self.dtype)
-        parts = mod.chunk(6 if self.has_text else 3, dim=-1)
-        x = x + parts[2][:, None] * self.mixer(modulate(x, parts[0], parts[1]))
-        if self.has_text:
-            h = modulate(layer_norm(x, eps=1e-6), parts[3], parts[4])
-            x = x + parts[5][:, None] * self.msa(h, text)
-        return x, residual
+        with span("model.block", index=self.index):
+            if drop is not None:
+                x = drop_path(x, *drop)
+            x, residual = add_norm(x, self.norm.weight, self.norm.bias,
+                                   residual, kind=self.kind, eps=self.eps,
+                                   prenorm=True,
+                                   residual_in_fp32=self.residual_in_fp32)
+            mod = dense(self.adaLN_modulation[1], F.silu(c), self.dtype)
+            parts = mod.chunk(6 if self.has_text else 3, dim=-1)
+            x = x + parts[2][:, None] * self.mixer(
+                modulate(x, parts[0], parts[1]))
+            if self.has_text:
+                h = modulate(layer_norm(x, eps=1e-6), parts[3], parts[4])
+                x = x + parts[5][:, None] * self.msa(h, text)
+            return x, residual
 
 
 class FinalLayer(nn.Module):
@@ -389,7 +397,7 @@ class ZigMa(nn.Module):
                                        scan_chunk=scan_chunk, **ssm_cfg),
                        has_text=has_text, rms_norm=rms_norm, norm_epsilon=norm_epsilon,
                        residual_in_fp32=residual_in_fp32, n_layer=depth,
-                       dtype=dtype, device=device)
+                       dtype=dtype, device=device, index=i)
             for i in range(depth)])
         if self._remat_context is not None and "scan_out" in remat_policy:
             for block in self.blocks:
@@ -425,17 +433,20 @@ class ZigMa(nn.Module):
         labels, (B, n_context_token, d_context) caption features or None.
         ``train`` turns on stochastic depth and the label drop, whose draws
         come from ``generator`` (the default generator when None)."""
-        h, c, text = self.embed(x, t, y, train, generator)
-        drops = [None] * (self.depth + 1)
-        if train and self.drop_path_rate > 0:
-            # every mask before the stack: a remat recompute must see the same
-            rates = [*drop_path_rates(self.drop_path_rate, self.depth),
-                     self.drop_path_rate]
-            u = torch.rand((len(rates), x.shape[0]), generator=generator,
-                           device=x.device)
-            drops = [(float(r), u[i] < 1.0 - r) for i, r in enumerate(rates)]
-        h, residual = self.run_blocks(h, None, c, text, drops)
-        return self.head(h, residual, drops[-1])
+        with span("model.forward"):
+            h, c, text = self.embed(x, t, y, train, generator)
+            drops = [None] * (self.depth + 1)
+            if train and self.drop_path_rate > 0:
+                # every mask before the stack: a remat recompute must
+                # see the same
+                rates = [*drop_path_rates(self.drop_path_rate, self.depth),
+                         self.drop_path_rate]
+                u = torch.rand((len(rates), x.shape[0]), generator=generator,
+                               device=x.device)
+                drops = [(float(r), u[i] < 1.0 - r)
+                         for i, r in enumerate(rates)]
+            h, residual = self.run_blocks(h, None, c, text, drops)
+            return self.head(h, residual, drops[-1])
 
     def embed(self, x, t, y=None, train: bool = False,
               generator: Optional[torch.Generator] = None,
@@ -444,24 +455,26 @@ class ZigMa(nn.Module):
         tables, the conditioning c (B, embed) and a text model's context
         (B, S, embed), else None.  ``force_drop_ids`` (1 = drop) replaces
         the label drop's draw."""
-        h = self.x_embedder(x)
-        B, L, E = h.shape
-        c = self.t_embedder((t * 1000.0).float())
-        text = None
-        if self.has_text:  # the projected tokens are every block's context
-            text = dense(self.y_embedder, y, self.dtype)
-            c = c + text.mean(1)
-        elif self.num_classes > 0:
-            c = c + self.y_embedder(y, train=train, generator=generator,
-                                    force_drop_ids=force_drop_ids)
-        if self.use_pe == 1:
-            h = h + self.pe_table.to(self.dtype)[None]
-        elif self.use_pe == 2:
-            h = h + self.pos_embed.to(self.dtype)
-        if self.video_frames > 0 and self.tpe:
-            tpe = self.temporal_pos_embedding.to(self.dtype)[:, :, None]
-            h = (h.reshape(B, self.video_frames, -1, E) + tpe).reshape(B, L, E)
-        return h, c, text
+        with span("model.embed"):
+            h = self.x_embedder(x)
+            B, L, E = h.shape
+            c = self.t_embedder((t * 1000.0).float())
+            text = None
+            if self.has_text:  # the projected tokens: every block's context
+                text = dense(self.y_embedder, y, self.dtype)
+                c = c + text.mean(1)
+            elif self.num_classes > 0:
+                c = c + self.y_embedder(y, train=train, generator=generator,
+                                        force_drop_ids=force_drop_ids)
+            if self.use_pe == 1:
+                h = h + self.pe_table.to(self.dtype)[None]
+            elif self.use_pe == 2:
+                h = h + self.pos_embed.to(self.dtype)
+            if self.video_frames > 0 and self.tpe:
+                tpe = self.temporal_pos_embedding.to(self.dtype)[:, :, None]
+                h = (h.reshape(B, self.video_frames, -1, E)
+                     + tpe).reshape(B, L, E)
+            return h, c, text
 
     def block_items(self):
         """``(i, block)`` for the blocks this module holds: all of them, or
@@ -490,16 +503,17 @@ class ZigMa(nn.Module):
 
     def head(self, h, residual, drop=None):
         """The final drop-path, add-norm, FinalLayer and unpatchify."""
-        if drop is not None:
-            h = drop_path(h, *drop)
-        h = add_norm(h, self.norm_f.weight, self.norm_f.bias, residual,
-                     kind="rms" if self.rms_norm else "layer",
-                     eps=self.norm_epsilon, prenorm=False,
-                     residual_in_fp32=self.residual_in_fp32)
-        h = self.final_layer(h)
-        if self.video_frames > 0:
-            return self._unpatchify_video(h)
-        return self._unpatchify(h)
+        with span("model.head"):
+            if drop is not None:
+                h = drop_path(h, *drop)
+            h = add_norm(h, self.norm_f.weight, self.norm_f.bias, residual,
+                         kind="rms" if self.rms_norm else "layer",
+                         eps=self.norm_epsilon, prenorm=False,
+                         residual_in_fp32=self.residual_in_fp32)
+            h = self.final_layer(h)
+            if self.video_frames > 0:
+                return self._unpatchify_video(h)
+            return self._unpatchify(h)
 
     def forward_with_cfg(self, x, t, y, cfg_scale: float, y_null=None,
                          cfg_channels: Optional[int] = None):

@@ -16,6 +16,10 @@ Counterpart of ``zigma_tpu/train/state.py``:
 - N steps a call (the JAX package's ``create_chained_train_step``, one
   jitted ``lax.scan``): ``train_chain`` runs them eagerly, ``CapturedChain``
   as one CUDA graph replayed behind one host launch.
+- Spans (``utils.profiling.span``): ``train_step`` around its five parts
+  ``train_step.{forward,backward,clip,optimizer,ema}``, and
+  ``train_chain.replay`` around a graph's replay (the steps' own spans are
+  recorded once, while it is captured).
 
 The model keeps float32 parameters and casts them per GEMM to its compute
 dtype (``dense``), so there is no separate master copy to keep in sync.
@@ -31,6 +35,8 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+
+from zigma_tpu_torch.utils.profiling import span
 
 __all__ = ["LATENT_SCALE", "TrainState", "create_optimizer", "update_ema",
            "make_diffusion_loss_fn", "train_step", "train_chain",
@@ -140,26 +146,34 @@ def train_step(state: TrainState, loss_fn: Callable, batch,
     the gradients over ``data`` in the backward, FSDP2 reduce-scatters
     them); the parameters FSDP2 leaves whole are averaged here, and the
     norm is the global one (``ParallelLayout.clip_grad_norm_``)."""
-    # under DDP the gradients stay views of its buckets (zeroed in place),
-    # so the backward writes into them without a copy a parameter
-    ddp = state.layout is not None and not state.layout.fsdp
-    state.opt.zero_grad(set_to_none=not (ddp or keep_grads))
-    loss = loss_fn(batch, generator, **loss_kw)
-    loss.backward()
-    if state.layout is not None:
-        state.layout.sync_replicated_grads()
-        grad_norm = state.layout.clip_grad_norm_(
-            list(state.model.named_parameters()), max_grad_norm)
-    else:
-        params = [p for p in state.model.parameters() if p.grad is not None]
-        if max_grad_norm and max_grad_norm > 0:
-            grad_norm = torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
-        else:
-            grad_norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(p.grad) for p in params]))
-    state.opt.step()
-    update_ema(state.ema, state.model, ema_decay)
-    state.step += 1
+    with span("train_step", step=state.step):
+        # under DDP the gradients stay views of its buckets (zeroed in
+        # place), so the backward writes into them without a copy a parameter
+        ddp = state.layout is not None and not state.layout.fsdp
+        state.opt.zero_grad(set_to_none=not (ddp or keep_grads))
+        with span("train_step.forward"):
+            loss = loss_fn(batch, generator, **loss_kw)
+        with span("train_step.backward"):
+            loss.backward()
+        with span("train_step.clip"):
+            if state.layout is not None:
+                state.layout.sync_replicated_grads()
+                grad_norm = state.layout.clip_grad_norm_(
+                    list(state.model.named_parameters()), max_grad_norm)
+            else:
+                params = [p for p in state.model.parameters()
+                          if p.grad is not None]
+                if max_grad_norm and max_grad_norm > 0:
+                    grad_norm = torch.nn.utils.clip_grad_norm_(
+                        params, max_grad_norm)
+                else:
+                    grad_norm = torch.linalg.vector_norm(torch.stack(
+                        [torch.linalg.vector_norm(p.grad) for p in params]))
+        with span("train_step.optimizer"):
+            state.opt.step()
+        with span("train_step.ema"):
+            update_ema(state.ema, state.model, ema_decay)
+        state.step += 1
     return {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
 
 
@@ -265,7 +279,8 @@ class CapturedChain:
                 "since the capture (a state dict loaded into the optimizer?): "
                 "the graph would write into freed memory; build a new "
                 "CapturedChain")
-        self.graph.replay()
+        with span("train_chain.replay", n_steps=self.n_steps):
+            self.graph.replay()
         self.state.step += self.n_steps
         return dict(self._out)
 

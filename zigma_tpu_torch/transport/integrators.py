@@ -18,11 +18,14 @@ host once per attempted step: one synchronisation per 7 drift calls.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from zigma_tpu_torch.utils.profiling import span
 
 __all__ = ["odeint_fixed", "odeint_dopri5", "sdeint"]
 
@@ -49,16 +52,17 @@ def odeint_fixed(drift: Callable, x0: torch.Tensor, t0: float, t1: float,
     x = x0
     traj = [x0]
     for i in range(num_steps - 1):
-        t, dt = ts[i], ts[i + 1] - ts[i]
-        k1 = drift(x, _t_batch(t, x))
-        if method == "euler":
-            x = x + float(dt) * k1.float()
-        else:
-            xp = x + float(dt) * k1.float()
-            k2 = drift(xp, _t_batch(t + dt, x))
-            # (k1 + k2) in the drift's dtype, as JAX adds the two bf16
-            # drifts before the float32 scale
-            x = x + 0.5 * float(dt) * (k1 + k2).float()
+        with span("sampler.step", i=i):
+            t, dt = ts[i], ts[i + 1] - ts[i]
+            k1 = drift(x, _t_batch(t, x))
+            if method == "euler":
+                x = x + float(dt) * k1.float()
+            else:
+                xp = x + float(dt) * k1.float()
+                k2 = drift(xp, _t_batch(t + dt, x))
+                # (k1 + k2) in the drift's dtype, as JAX adds the two bf16
+                # drifts before the float32 scale
+                x = x + 0.5 * float(dt) * (k1 + k2).float()
         traj.append(x)
     return torch.stack(traj)
 
@@ -132,8 +136,11 @@ def odeint_dopri5(drift: Callable, x0, t0: float, t1: float, num_steps: int,
     ts = np.linspace(f32(t0), f32(t1), num_steps, dtype=f32)
     direction = f32(np.sign(ts[-1] - ts[0]))
 
+    stages = itertools.count()
+
     def f(state, t):
-        out = drift(state[0] if single else state, _t_batch(t, state[0]))
+        with span("sampler.step", i=next(stages)):
+            out = drift(state[0] if single else state, _t_batch(t, state[0]))
         return (out,) if single else tuple(out)
 
     accepted = rejected = 0
@@ -200,19 +207,20 @@ def sdeint(drift: Callable, diffusion: Callable, x0: torch.Tensor, t0: float,
     sqrt_dt = float(torch.sqrt(ts[1] - ts[0]))
     x, traj = x0, []
     for i in range(num_steps - 1):
-        w = (noise[i] if noise is not None else torch.randn(
-            x.shape, generator=generator, dtype=x.dtype, device=x.device))
-        tb = _t_batch(ts[i], x)
-        if method == "Euler":
-            d = drift(x, tb).float()
-            g = diffusion(x, tb)
-            x = (x + dt * d) + torch.sqrt(2 * g) * w * sqrt_dt
-        else:
-            g = diffusion(x, tb)
-            xhat = x + torch.sqrt(2 * g) * w * sqrt_dt
-            k1 = drift(xhat, tb).float()
-            xp = xhat + dt * k1
-            k2 = drift(xp, _t_batch(ts[i] + (ts[1] - ts[0]), x)).float()
-            x = xhat + 0.5 * dt * (k1 + k2)
+        with span("sampler.step", i=i):
+            w = (noise[i] if noise is not None else torch.randn(
+                x.shape, generator=generator, dtype=x.dtype, device=x.device))
+            tb = _t_batch(ts[i], x)
+            if method == "Euler":
+                d = drift(x, tb).float()
+                g = diffusion(x, tb)
+                x = (x + dt * d) + torch.sqrt(2 * g) * w * sqrt_dt
+            else:
+                g = diffusion(x, tb)
+                xhat = x + torch.sqrt(2 * g) * w * sqrt_dt
+                k1 = drift(xhat, tb).float()
+                xp = xhat + dt * k1
+                k2 = drift(xp, _t_batch(ts[i] + (ts[1] - ts[0]), x)).float()
+                x = xhat + 0.5 * dt * (k1 + k2)
         traj.append(x)
     return torch.stack(traj)

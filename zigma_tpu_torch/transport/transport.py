@@ -19,6 +19,10 @@ same.
 
 Model interface: ``model_fn(x, t, **model_kwargs)`` with x (B, ...) and
 t (B,) in [0, 1].
+
+A batch of the ODE or SDE sampler is a span ``sampler.sample`` (its
+``method`` and ``num_steps``) around one ``sampler.step`` a step, or a
+dopri5 stage (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from zigma_tpu_torch.transport import path as path_mod
 from zigma_tpu_torch.transport.integrators import (odeint_dopri5,
                                                    odeint_fixed, sdeint)
 from zigma_tpu_torch.transport.path import expand_t_like_x
+from zigma_tpu_torch.utils.profiling import span
 
 __all__ = ["ModelType", "PathType", "WeightType", "Transport", "Sampler",
            "create_transport", "mean_flat"]
@@ -205,10 +210,12 @@ class Sampler:
 
         def sample_fn(z, model_fn, stats=None, **model_kwargs):
             drift = lambda x, t: base_drift(x, t, model_fn, **model_kwargs)
-            if method == "dopri5":
-                return odeint_dopri5(drift, z, t0, t1, num_steps, atol=atol,
-                                     rtol=rtol, stats=stats)
-            return odeint_fixed(drift, z, t0, t1, num_steps, method=method)
+            with span("sampler.sample", method=method, num_steps=num_steps):
+                if method == "dopri5":
+                    return odeint_dopri5(drift, z, t0, t1, num_steps,
+                                         atol=atol, rtol=rtol, stats=stats)
+                return odeint_fixed(drift, z, t0, t1, num_steps,
+                                    method=method)
 
         return sample_fn
 
@@ -274,13 +281,15 @@ class Sampler:
         def sample_fn(z, model_fn, generator=None, noise=None,
                       **model_kwargs):
             drift = lambda x, t: sde_drift(x, t, model_fn, **model_kwargs)
-            traj = sdeint(drift, sde_diffusion, z, t0, t1, num_steps,
-                          method=sampling_method, generator=generator,
-                          noise=noise)
-            ts = torch.full((z.shape[0],), t1, dtype=torch.float32,
-                            device=z.device)
-            x_last = last_fn(traj[-1], ts, model_fn, **model_kwargs)
-            return torch.cat([traj, x_last[None]])
+            with span("sampler.sample", method=sampling_method,
+                      num_steps=num_steps):
+                traj = sdeint(drift, sde_diffusion, z, t0, t1, num_steps,
+                              method=sampling_method, generator=generator,
+                              noise=noise)
+                ts = torch.full((z.shape[0],), t1, dtype=torch.float32,
+                                device=z.device)
+                x_last = last_fn(traj[-1], ts, model_fn, **model_kwargs)
+                return torch.cat([traj, x_last[None]])
 
         return sample_fn
 

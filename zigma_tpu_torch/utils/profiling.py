@@ -1,30 +1,226 @@
-"""Profiling, FLOP accounting and roofline helpers.
+"""Profiling helpers: the program's spans and counters, a Chrome trace, the
+caching allocator's memory counters, differential timing.
 
-Counterpart of ``zigma_tpu/utils/profiling.py`` in torch idiom: a trace
-over ``torch.profiler`` (a Chrome trace), FLOPs from
-``torch.utils.flop_counter.FlopCounterMode`` with the selective scan's own
-rule (the reference's fvcore rule, ``ops.selective_scan.selective_scan_flops``)
-and a roofline against the H100's published peaks, the caching allocator's
-memory counters per card, and differential timing (``k_big`` against
-``k_small`` chained calls of an op), which leaves out what a call costs
-once (launch latency, a final synchronise).
+**Spans.** ``with span(name, **attrs): ...`` marks one piece of the
+program's work.  Recording is off by default, and then a span costs a flag
+check and a look at whether a ``torch.profiler`` runs: it returns a shared
+object that does nothing, reads no clock and keeps nothing.  ``with
+recording() as spans:`` turns it on and yields the list that takes every
+``Span`` opened until the block ends (in the order they opened); the
+caller owns the list.  A span records its name, id, parent's id, the id of
+the unit it belongs to (its root span's), the thread that ran it, its start
+and end, and its attributes.  Stamps are ``time.perf_counter_ns()`` plus
+one offset to Unix time taken when recording starts: the clock of
+``torch.profiler``'s (Kineto's) host events and, through the same
+conversion, of CUPTI's device records, so spans and a device trace of the
+same run can be laid over each other.
+
+Each thread keeps its own stack of open spans.  A span opened on a thread
+with no open span belongs to the open unit, under the innermost open span
+of the unit's thread: on a card the autograd engine runs the backward on a
+thread of its own, and a remat recompute there nests under
+``train_step.backward``.  One unit is open at a time.
+
+A root span also carries ``counters``, the change between its start and its
+end of: the K1 / K2 launches (``selective_scan_{fwd,bwd}_cuda.launches``),
+the caching allocator's ``num_device_alloc``, ``num_device_free`` and
+``num_alloc_retries`` (None without a card, or where the card's torch has
+no such count) and Python's garbage collections.  While recording, each
+collection is a span ``host.gc`` with its ``generation``.
+
+Whenever a ``torch.profiler`` runs, recording or not, each span is also a
+range of the same name among the profiler's host events, so ``trace(dir)``
+shows the program's spans on the timeline of the kernels they launched.
+The range is a plain function range (``_RecordFunctionFast``; a torch
+build without it has no bridge), not a user annotation (``record_function``): the profiler mirrors a user annotation
+onto the device as an event spanning its kernels, which a reader of the
+device's operations would count as work and which would hide the device's
+idle gaps inside it.
+
+**The rest.**  ``trace`` writes a Chrome trace over ``torch.profiler``
+(counterpart of ``zigma_tpu/utils/profiling.py``'s); ``device_memory_stats``
+reads the caching allocator's counters per card; ``differential_time``
+times an op as ``k_big`` against ``k_small`` chained calls, which leaves
+out what a call costs once (launch latency, a final synchronise);
+``H100_PEAK`` holds the card's published peaks.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import itertools
 import os
+import threading
 import time
 from typing import Callable
 
 import torch
 
-__all__ = ["trace", "cost_analysis", "device_memory_stats",
+__all__ = ["span", "recording", "Span", "trace", "device_memory_stats",
            "differential_time", "H100_PEAK"]
 
 # NVIDIA H100 SXM data sheet, dense (no sparsity), at the 700 W limit
 H100_PEAK = {"bf16_flops": 989e12, "fp32_flops": 67e12,
              "hbm_bytes_per_sec": 3.35e12}
+
+ALLOCATOR_COUNTS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+
+_recorder = None  # the _Recorder while recording is on
+# the profiler's plain function range; a torch without it gets no bridge
+_Range = getattr(getattr(torch._C, "_profiler", None), "_RecordFunctionFast",
+                 None)
+_profiler_enabled = (torch.autograd._profiler_enabled if _Range is not None
+                     else lambda: False)
+
+
+class _Off:
+    """The span of a program that records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, **attrs):
+    """A context manager marking ``name``'s work: a ``Span`` while
+    recording, a profiler range where only a profiler runs, else a shared
+    object that does nothing."""
+    if _recorder is None:
+        if _profiler_enabled():
+            return _Range(name)
+        return _OFF
+    return Span(_recorder, name, attrs)
+
+
+class Span:
+    """One recorded span; ``end_ns`` is None while it is open, and
+    ``counters`` None but on a root span."""
+
+    __slots__ = ("name", "id", "parent", "unit", "thread", "start_ns",
+                 "end_ns", "attrs", "counters", "_rec", "_range")
+
+    def __init__(self, rec, name: str, attrs: dict):
+        self._rec, self.name, self.attrs = rec, name, attrs
+        self.id = self.parent = self.unit = self.thread = None
+        self.start_ns = self.end_ns = self.counters = self._range = None
+
+    def __enter__(self):
+        self._rec.open(self)
+        if _profiler_enabled():
+            self._range = _Range(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._rec.close(self)
+        return False
+
+    def __repr__(self):
+        return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, "
+                f"unit={self.unit}, ns=[{self.start_ns}, {self.end_ns}], "
+                f"attrs={self.attrs})")
+
+
+def _counts(kernels) -> dict:
+    fwd, bwd = kernels
+    out = {"k1_launches": fwd.launches, "k2_launches": bwd.launches,
+           "gc_collections": sum(g["collections"] for g in gc.get_stats())}
+    stats = {}
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        stats = torch.cuda.memory_stats_as_nested_dict()
+    out.update({k: stats.get(k) for k in ALLOCATOR_COUNTS})
+    return out
+
+
+class _Recorder:
+    """The state of one recording: the spans, each thread's open spans and
+    the open unit.  Re-entrant: a collection may start inside ``open``."""
+
+    def __init__(self):
+        from zigma_tpu_torch.ops import scan_cuda
+        self.kernels = (scan_cuda.selective_scan_fwd_cuda,
+                        scan_cuda.selective_scan_bwd_cuda)
+        self.spans, self.stacks, self.unit, self.gc_spans = [], {}, None, {}
+        self.lock = threading.RLock()
+        self.ids = itertools.count(1)
+        a = time.perf_counter_ns()
+        unix = time.time_ns()
+        self.offset = unix - (a + time.perf_counter_ns()) // 2
+
+    def open(self, s: Span, push: bool = True):
+        tid = threading.get_ident()
+        with self.lock:
+            stack = self.stacks.setdefault(tid, [])
+            parent = stack[-1] if stack else None
+            if parent is None and self.unit is not None:
+                held = self.stacks.get(self.unit.thread)
+                parent = held[-1] if held else self.unit
+            s.id, s.thread = next(self.ids), tid
+            if parent is None:
+                s.unit = s.id
+                if push:  # a collection outside every unit opens none
+                    self.unit, s.counters = s, _counts(self.kernels)
+            else:
+                s.parent, s.unit = parent.id, parent.unit
+            if push:
+                stack.append(s)
+            self.spans.append(s)
+        s.start_ns = time.perf_counter_ns() + self.offset
+
+    def close(self, s: Span, pop: bool = True):
+        end = time.perf_counter_ns() + self.offset
+        with self.lock:
+            s.end_ns = end
+            if pop:
+                stack = self.stacks[s.thread]
+                if stack and stack[-1] is s:
+                    stack.pop()
+                else:
+                    stack.remove(s)
+            if self.unit is s:
+                self.unit = None
+                after = _counts(self.kernels)
+                s.counters = {k: None if v is None or after[k] is None
+                              else after[k] - v
+                              for k, v in s.counters.items()}
+
+    def on_gc(self, phase: str, info: dict):
+        tid = threading.get_ident()
+        if phase == "start":
+            s = Span(self, "host.gc", {"generation": info["generation"]})
+            self.open(s, push=False)
+            self.gc_spans[tid] = s
+        elif tid in self.gc_spans:
+            self.close(self.gc_spans.pop(tid), pop=False)
+
+
+@contextlib.contextmanager
+def recording():
+    """``with recording() as spans:`` records every span opened in the
+    block into the list ``spans`` and every garbage collection as a
+    ``host.gc`` span; recording is off again, and ``gc.callbacks`` as it
+    was, once the block ends.  Not nested."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("recording is already on")
+    rec = _Recorder()
+    gc.callbacks.append(rec.on_gc)
+    _recorder = rec
+    try:
+        yield rec.spans
+    finally:
+        _recorder = None
+        gc.callbacks.remove(rec.on_gc)
 
 
 @contextlib.contextmanager
@@ -45,52 +241,6 @@ def trace(log_dir: str):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def _register_scan_flops():
-    """The scan's FLOP rule on the registered K1 operator (once)."""
-    from torch.utils.flop_counter import flop_registry, register_flop_formula
-
-    from zigma_tpu_torch.ops.selective_scan import selective_scan_flops
-
-    op = torch.ops.zigma.selective_scan_fwd
-    if op in flop_registry:
-        return
-
-    @register_flop_formula(op)
-    def _scan_flops(u, delta, A, B, C, delta_bias, D, z, *args, **kwargs):
-        batch, L, d = u
-        return selective_scan_flops(batch, L, d, A[1], with_D=D is not None,
-                                    with_z=z is not None)
-
-
-def cost_analysis(fn: Callable, *args, **kwargs) -> dict:
-    """FLOPs of ``fn(*args, **kwargs)`` (run once) and a roofline estimate.
-
-    Returns ``{"flops", "flops_by_op", "bytes_accessed", "roofline_seconds"}``.
-    ``flops`` counts what ``FlopCounterMode`` has a rule for: matmuls,
-    convolutions, attention, and the selective scan where it runs through
-    the registered operator ``zigma::selective_scan_fwd`` (every scan under
-    autograd: a training forward; a forward without gradients launches K1
-    directly and its scans are not counted), each by
-    ``selective_scan_flops``.  Elementwise work and the scan's backward
-    (K2, called inside the operator's autograd rule) are not counted.
-    ``bytes_accessed`` is None: torch keeps no count of the bytes its
-    kernels move (XLA's cost analysis has one).  ``roofline_seconds`` is
-    the FLOPs over the bf16 tensor-core peak (``H100_PEAK``), the floor the
-    JAX helper computes against its chip's bf16 peak, without its bytes
-    term."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    _register_scan_flops()
-    counter = FlopCounterMode(display=False)
-    with counter:
-        fn(*args, **kwargs)
-    by_op = {str(op): int(n)
-             for op, n in counter.get_flop_counts()["Global"].items()}
-    flops = int(counter.get_total_flops())
-    return {"flops": flops, "flops_by_op": by_op, "bytes_accessed": None,
-            "roofline_seconds": flops / H100_PEAK["bf16_flops"]}
 
 
 def device_memory_stats() -> dict:
