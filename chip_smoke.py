@@ -265,9 +265,26 @@ Phases, each of which fails loudly (non-zero exit, no result line):
                  without the profiler) and plain, capture seconds, peak
                  memory and the graph's pool, device busy of a replay
                  against an eager step.
+44. conv kernels -- (after the video kernels) the causal conv1d kernel pair
+                 (``csrc/causal_conv1d.cu``) at the shapes the main paths
+                 give it, the flagship (16, 1024, 1536) and the video's
+                 spatial (320, 256, 1536) and temporal (5120, 16, 1536)
+                 layers: bf16, W 4, bias and SiLU, x read in place out of a
+                 (batch, L, 2 d) xz.  The forward equal to the plain version
+                 on the card (``torch.equal``); the backward twice bit-equal,
+                 within TOL_CONV_BWD of its plain version
+                 (``causal_conv1d_bwd_ref``) on every gradient, and no
+                 farther from float64 autograd of the plain forward than the
+                 plain bf16 autograd chain; one launch a call each.  Times
+                 beside the bound (bytes), the plain version and the
+                 library's (cuDNN's depthwise ``F.conv1d`` and SiLU); the
+                 instances' registers and resident blocks an SM.
 
 Every count is set to 0 just before its path runs and read just after; the
-plain versions must run 0 times on every path.
+plain versions must run 0 times on every path.  The conv kernels' launches
+are read beside K1's and K2's: a Mamba-1 mixer runs one conv before each
+scan, so on the flagship, video, text and LM paths they equal K1's and
+K2's; the ssm2 paths run the conv (Mamba-2's xBC) with neither.
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the nvidia-smi line comes just before.
 """
@@ -347,6 +364,14 @@ TOL_BWD = 1e-5
 # long-memory cases below, above TOL_BWD's reach for this kind of input
 TOL_BWD_LONG = 3e-5
 TOL_DBIAS_BF16 = 1e-3
+# The conv backward kernel against its plain version on the card, each
+# gradient's norm of the difference over the plain one's norm: both compute
+# in fp32 from the same bf16-rounded pre-activation and differ only in
+# summation order (dx rounded to bf16 may land one ulp apart); a misplaced
+# tap or a lost partial reads of order 1
+TOL_CONV_BWD = 1e-3
+CONV_SHAPES = ((16, 1024, 1536), (320, 256, 1536), (5120, 16, 1536))
+CONV_W = 4
 BWD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dbias", "dx0", "dz", "dD")
 # loss and per-parameter gradients of the fp32 depth-2 model, kernels vs
 # plain versions: the same summation-order differences through two blocks
@@ -1151,8 +1176,7 @@ def main_path_phase(gen, tmp):
 
     ckpt = os.path.join(tmp, "flagship.pt")
     torch.save({"ema": sd}, ckpt)
-    scan_cuda.selective_scan_fwd_cuda.launches = 0
-    selective_scan_ref.calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = sample_cli.main([
         f"ckpt={ckpt}", "model=zigzag8_b1_pe2", "sample_mode=ODE",
@@ -1170,6 +1194,7 @@ def main_path_phase(gen, tmp):
           flush=True)
     if launches != want:
         fail(f"K1 launched {launches} times on the main path, expected {want}")
+    conv = check_conv("sample CLI", (want, 0))
     if plain_calls != 0:
         fail(f"the plain scan ran {plain_calls} times on the main path")
     if len(pngs) != N_BATCHES * BATCH:
@@ -1211,7 +1236,7 @@ def main_path_phase(gen, tmp):
     if not rel <= TOL_FORWARD:
         fail("flagship forward: kernel and plain scan disagree")
     return model, x, t, dict(images_per_s=img_s, forward_ms=fwd_ms,
-                             launches=launches, ckpt=ckpt)
+                             launches=launches, conv=conv, ckpt=ckpt)
 
 
 def train_phase(gen):
@@ -1227,9 +1252,7 @@ def train_phase(gen):
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
         held_gb = torch.cuda.memory_allocated() / 1e9  # by earlier phases
-        scan_cuda.selective_scan_fwd_cuda.launches = 0
-        scan_cuda.selective_scan_bwd_cuda.launches = 0
-        selective_scan_ref.calls = selective_scan_bwd_ref.calls = 0
+        reset_counts()
         t0 = time.perf_counter()
         res = train_cli.main([
             "model=zigzag8_b1_pe2", "data=synthetic",
@@ -1240,6 +1263,7 @@ def train_phase(gen):
         k1 = scan_cuda.selective_scan_fwd_cuda.launches
         k2 = scan_cuda.selective_scan_bwd_cuda.launches
         plain = (selective_scan_ref.calls, selective_scan_bwd_ref.calls)
+        conv = check_conv("train CLI", (48 * TRAIN_STEPS, 24 * TRAIN_STEPS))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         state = res["state"]
         cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default",
@@ -1256,8 +1280,8 @@ def train_phase(gen):
           f"{[round(v, 4) for v in losses]}; grad norms "
           f"{[round(r['grad_norm'], 3) for r in res['records']]}", flush=True)
     print(f"K1 launches {k1} (expected {48 * TRAIN_STEPS}), K2 launches {k2} "
-          f"(expected {24 * TRAIN_STEPS}); plain scan / plain backward calls "
-          f"{plain}; checkpoint {ckpt_name}: EMA loaded with strict=True into "
+          f"(expected {24 * TRAIN_STEPS}); conv forward / backward {conv}; "
+          f"plain scan / plain backward calls {plain}; checkpoint {ckpt_name}: EMA loaded with strict=True into "
           f"a fresh flagship model", flush=True)
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         fail(f"training losses {losses}")
@@ -1280,7 +1304,7 @@ def train_phase(gen):
           f"held by earlier phases before the run", flush=True)
     return state, dict(steps_per_s=steps_s, images_per_s=steps_s * BATCH,
                        peak_gb=peak_gb, held_gb=held_gb, k1=k1, k2=k2,
-                       losses=losses)
+                       conv=conv, losses=losses)
 
 
 def device_rows(prof):
@@ -1702,13 +1726,176 @@ def video_kernel_phase(gen):
     return times
 
 
+def conv_inputs(gen, batch, L, d, W=CONV_W):
+    """The Mamba mixer's conv inputs at (batch, L, d): x in bf16, read in
+    place out of a (batch, L, 2 d) xz; fp32 taps and bias at the init's
+    scale (uniform within W^-1/2); a bf16 cotangent."""
+    import torch
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = r(batch, L, 2 * d).to(torch.bfloat16)[..., :d]
+    bound = W ** -0.5
+    w = (2 * torch.rand(d, W, generator=gen, device="cuda") - 1) * bound
+    b = (2 * torch.rand(d, generator=gen, device="cuda") - 1) * bound
+    return x, w, b, r(batch, L, d).to(torch.bfloat16)
+
+
+def conv_library(x, w, b):
+    """The conv as one library call: cuDNN's depthwise conv1d (groups d,
+    W - 1 zeros on the left, the last W - 1 outputs dropped) and SiLU in
+    x's dtype, on x seen as (batch, d, L); returns the (batch, L, d)
+    view."""
+    import torch.nn.functional as F
+    W, L = w.shape[1], x.shape[1]
+    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype)[:, None], b.to(x.dtype),
+                 padding=W - 1, groups=x.shape[2])[..., :L]
+    return F.silu(y).transpose(1, 2)
+
+
+def conv_grads(fn, x, w, b, dy):
+    """(dx, dw, dbias) by autograd of ``fn`` at (x, w, b), cotangent dy."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b)]
+    y = fn(*leaves)
+    return torch.autograd.grad(y, leaves, dy.to(y.dtype))
+
+
+def conv_backward_ms(fn, x, w, b, dy):
+    """CUDA-event ms of autograd's backward of ``fn`` (its graph kept)."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b)]
+    y = fn(*leaves)
+    return cuda_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                               retain_graph=True),
+                   reps=3, groups=3)
+
+
+def norm_gap(a, b):
+    """||a - b|| / ||b||, in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def conv_kernel_phase(gen):
+    """The conv kernels at CONV_SHAPES as the Mamba mixer calls them: the
+    forward equal to the plain version, the backward against its plain
+    version and float64 autograd, one launch a call each; times of the
+    kernels, the plain versions and the library's conv beside the bound.
+    Returns {shape: {"fwd": row, "bwd": row}} and the instances."""
+    import torch
+    from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d_bwd_ref,
+                                                   causal_conv1d_ref)
+    from zigma_tpu_torch.ops.conv_cuda import (causal_conv1d_bwd_cuda,
+                                               causal_conv1d_fwd_cuda,
+                                               causal_conv1d_launch_info)
+    info = {k: causal_conv1d_launch_info(k == "bwd", torch.bfloat16)
+            for k in ("fwd", "bwd")}
+    print(f"conv kernel instances (W {CONV_W}, bf16): forward {info['fwd']}, "
+          f"backward {info['bwd']}", flush=True)
+    if any(i["spill_bytes"] or i["blocks_per_sm"] < 1 for i in info.values()):
+        fail(f"conv kernel instances spill or do not fit an SM: {info}")
+    rows = {}
+    for shape in CONV_SHAPES:
+        batch, L, d = shape
+        x, w, b, dy = conv_inputs(gen, *shape)
+        with torch.no_grad():
+            before = conv_counts()
+            y = causal_conv1d_fwd_cuda(x, w, b)
+            got = causal_conv1d_bwd_cuda(x, w, b, dy)[:3]
+            torch.cuda.synchronize()
+            if conv_counts() != (before[0] + 1, before[1] + 1):
+                fail(f"conv {shape}: launches {conv_counts()} after "
+                     f"{before}, expected one of each")
+            again = causal_conv1d_bwd_cuda(x, w, b, dy)[:3]
+            y_ref = causal_conv1d_ref(x, w, b)
+            ref = causal_conv1d_bwd_ref(x, w, b, dy)[:3]
+            y64 = causal_conv1d_ref(x.double(), w.double(), b.double())
+            y_lib = conv_library(x, w, b)
+        if not torch.equal(y, y_ref):
+            fail(f"conv {shape}: forward differs from the plain version, "
+                 f"max abs {rel_err(y, y_ref)[0]:.3e}")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            fail(f"conv {shape}: two backward launches differ")
+        truth = conv_grads(causal_conv1d_ref, x.double(), w.double(),
+                           b.double(), dy.double())
+        plain = conv_grads(causal_conv1d_ref, x, w, b, dy)
+        names = ("dx", "dw", "dbias")
+        to_ref = {n: norm_gap(g, r) for n, g, r in zip(names, got, ref)}
+        to_truth = {n: (norm_gap(g, t), norm_gap(p, t))
+                    for n, g, p, t in zip(names, got, plain, truth)}
+        fwd_gaps = (norm_gap(y, y64), norm_gap(y_lib, y64))
+        del truth, plain, ref, again, y64
+        print(f"conv {shape}: forward equal to the plain version; its gap to "
+              f"float64 {fwd_gaps[0]:.3e}, the library's {fwd_gaps[1]:.3e}; "
+              f"backward gaps to its plain version "
+              + ", ".join(f"{n} {v:.2e}" for n, v in to_ref.items())
+              + f" (limit {TOL_CONV_BWD}); to float64 autograd, kernel / "
+              f"plain bf16 chain "
+              + ", ".join(f"{n} {k:.3e} / {p:.3e}"
+                          for n, (k, p) in to_truth.items()), flush=True)
+        for n in names:
+            if not to_ref[n] <= TOL_CONV_BWD:
+                fail(f"conv {shape}: {n} {to_ref[n]:.3e} from the plain "
+                     f"backward, limit {TOL_CONV_BWD}")
+            k, p = to_truth[n]
+            if not k <= 1.01 * p + 1e-6:
+                fail(f"conv {shape}: {n} {k:.3e} from float64 autograd, "
+                     f"the plain bf16 chain {p:.3e}")
+        elems = batch * L * d
+        n_bytes = x.numel() * x.element_size()
+        param_bytes = (w.numel() + b.numel()) * 4
+        times = dict(  # no input needs a gradient: the forwards record none
+            fwd=(cuda_ms(lambda: causal_conv1d_fwd_cuda(x, w, b), 20),
+                 cuda_ms(lambda: causal_conv1d_ref(x, w, b), 3, 3),
+                 cuda_ms(lambda: conv_library(x, w, b), 20)),
+            bwd=(cuda_ms(lambda: causal_conv1d_bwd_cuda(x, w, b, dy), 20),
+                 conv_backward_ms(causal_conv1d_ref, x, w, b, dy),
+                 conv_backward_ms(conv_library, x, w, b, dy)))
+        # the work: x read and y written forward (the taps' FMAs, the bias,
+        # SiLU's exp and division); x and dy read and dx written backward
+        # (the taps recomputed, SiLU's derivative, dx's and dw's FMAs)
+        work = dict(fwd=(2 * n_bytes + param_bytes, (2 * CONV_W + 5) * elems,
+                         elems),
+                    bwd=(3 * n_bytes + 2 * param_bytes,
+                         (6 * CONV_W + 8) * elems, elems))
+        row = {}
+        for k, (ms, plain_ms, lib_ms) in times.items():
+            bound_ms, bound_by, how = least_time(*work[k])
+            row[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+            print(f"conv {k} {shape}: {ms:.4f} ms ({ms / bound_ms:.2f}x the "
+                  f"bound {bound_ms:.4f} ms by {bound_by}: {how}); plain "
+                  f"{plain_ms:.3f} ms; library {lib_ms:.4f} ms", flush=True)
+        rows["x".join(map(str, shape))] = row
+        del x, w, b, dy, y, y_ref, y_lib, got
+        torch.cuda.empty_cache()
+    return rows, info
+
+
 def reset_counts():
-    from zigma_tpu_torch.ops import scan_cuda
+    from zigma_tpu_torch.ops import conv_cuda, scan_cuda
     from zigma_tpu_torch.ops.selective_scan import (selective_scan_bwd_ref,
                                                     selective_scan_ref)
     scan_cuda.selective_scan_fwd_cuda.launches = 0
     scan_cuda.selective_scan_bwd_cuda.launches = 0
     selective_scan_ref.calls = selective_scan_bwd_ref.calls = 0
+    conv_cuda.causal_conv1d_fwd_cuda.launches = 0
+    conv_cuda.causal_conv1d_bwd_cuda.launches = 0
+
+
+def conv_counts():
+    """(conv forward launches, conv backward launches)"""
+    from zigma_tpu_torch.ops import conv_cuda
+    return (conv_cuda.causal_conv1d_fwd_cuda.launches,
+            conv_cuda.causal_conv1d_bwd_cuda.launches)
+
+
+def check_conv(what, want):
+    """The conv counts, failing unless they are ``want``."""
+    got = conv_counts()
+    if got != tuple(want):
+        fail(f"{what}: conv forward / backward launches {got}, expected "
+             f"{tuple(want)}")
+    return got
 
 
 def read_counts():
@@ -1721,9 +1908,12 @@ def read_counts():
             selective_scan_ref.calls, selective_scan_bwd_ref.calls)
 
 
-def run_sample_cli(what, args):
+def run_sample_cli(what, args, conv_per_scan=True):
     """``cli.sample.main(args)`` with the counts set to 0 just before and
-    read just after; fails on non-finite samples or a plain-version call."""
+    read just after; fails on non-finite samples or a plain-version call,
+    and (``conv_per_scan``, a Mamba-1 model) unless the conv kernels
+    launched as often as K1 and K2.  The conv counts go to
+    ``res["conv"]``."""
     import torch
     from zigma_tpu_torch.cli import sample as sample_cli
     reset_counts()
@@ -1732,11 +1922,14 @@ def run_sample_cli(what, args):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2, p1, p2 = read_counts()
+    res["conv"] = (check_conv(what, (k1, k2)) if conv_per_scan
+                   else conv_counts())
     calls = sum(res["model_calls"])
     print(f"{what}: {wall:.2f} s; {len(res['model_calls'])} batch(es) of "
           f"{[round(v, 3) for v in res['batch_seconds']]} s; model calls "
-          f"{res['model_calls']}; K1 {k1}, K2 {k2} launches; plain scan / "
-          f"plain backward calls {(p1, p2)}", flush=True)
+          f"{res['model_calls']}; K1 {k1}, K2 {k2} launches; conv forward / "
+          f"backward {res['conv']}; plain scan / plain backward calls "
+          f"{(p1, p2)}", flush=True)
     if (p1, p2) != (0, 0):
         fail(f"{what}: the plain versions ran {(p1, p2)} times")
     if res["n_nonfinite"]:
@@ -1762,7 +1955,8 @@ def sample_dopri5_phase(ckpt, tmp):
              f"calls, expected {DEPTH} / 0 a call")
     if calls != 7 * (st["accepted"] + st["rejected"]) or calls < 7 * 249:
         fail(f"dopri5: {calls} model calls for {st}")
-    return dict(images_per_s=img_s, model_calls=calls, k1=k1, **st)
+    return dict(images_per_s=img_s, model_calls=calls, k1=k1,
+                conv=res["conv"], **st)
 
 
 def sample_sde_phase(ckpt, tmp):
@@ -1779,7 +1973,7 @@ def sample_sde_phase(ckpt, tmp):
     if calls != 250 or k1 != DEPTH * 250 or k2 != 0:
         fail(f"SDE: {calls} model calls, K1 / K2 {k1} / {k2}; expected 250, "
              f"{DEPTH * 250} / 0")
-    return dict(images_per_s=img_s, k1=k1)
+    return dict(images_per_s=img_s, k1=k1, conv=res["conv"])
 
 
 def likelihood_phase(ckpt, tmp):
@@ -1803,7 +1997,8 @@ def likelihood_phase(ckpt, tmp):
              f"expected 9, {2 * DEPTH * 9} / {DEPTH * 9}")
     if not all(math.isfinite(float(v)) for v in logp):
         fail(f"likelihood: logp {logp}")
-    return dict(k1=k1, k2=k2, logp=[float(v) for v in logp])
+    return dict(k1=k1, k2=k2, conv=res["conv"],
+                logp=[float(v) for v in logp])
 
 
 def video_sample_phase(gen, ckpt, tmp):
@@ -1830,7 +2025,7 @@ def video_sample_phase(gen, ckpt, tmp):
     if res["model_calls"] != [STEPS - 1] * 2 or k1 != 2 * DEPTH * (STEPS - 1):
         fail(f"video sampling: model calls {res['model_calls']}, K1 {k1}; "
              f"expected {STEPS - 1} and {DEPTH * (STEPS - 1)} a batch")
-    return vckpt, dict(videos_per_s=videos_s, k1=k1)
+    return vckpt, dict(videos_per_s=videos_s, k1=k1, conv=res["conv"])
 
 
 def repairs_phase(gen):
@@ -1940,15 +2135,17 @@ def s1024_kernel_phase(gen):
 
 
 def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
-                    k1_eval=0, steps=TRAIN_STEPS):
+                    k1_eval=0, steps=TRAIN_STEPS, conv_per_scan=False):
     """``cli.train`` with ``args`` at ``batch``, ``steps`` steps, the
     counts set to 0 just before and read just after: every loss finite,
     exactly ``k1_step`` / ``k2_step`` K1 / K2 launches a step (and
     ``k1_eval`` more for the run's evals) and the plain versions never; the
-    checkpoint's EMA loads with strict=True into the sampler's model.
-    Returns (state, checkpoint, numbers, with the run's ``evals`` and
-    ``suite``); ``unit`` names a sample (images, videos) in the printed
-    rate."""
+    checkpoint's EMA loads with strict=True into the sampler's model; with
+    ``conv_per_scan`` (a Mamba-1 model through K1 / K2 and full remat) the
+    conv kernels launched as often as K1 and K2.  Returns (state,
+    checkpoint, numbers, with the run's ``evals``, ``suite`` and ``conv``,
+    the conv forward / backward launches); ``unit`` names a sample
+    (images, videos) in the printed rate."""
     import torch
     from zigma_tpu_torch.cli import sample as sample_cli
     from zigma_tpu_torch.cli import train as train_cli
@@ -1963,6 +2160,8 @@ def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    conv = (check_conv(f"{what} training", counts[:2]) if conv_per_scan
+            else conv_counts())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = sample_cli.load_config(sample_cli.DEFAULT_CONFIG_DIR, "default", args)
     fresh = sample_cli.build_model(cfg, device="cuda")
@@ -1976,8 +2175,9 @@ def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
           f"build included); {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
           f"params, dtype {model.dtype}, remat {model.use_checkpoint}; losses "
           f"{[round(v, 4) for v in losses]}; K1, K2, plain scan, plain "
-          f"backward {counts} (expected {want}); EMA loaded with strict=True "
-          f"into the sampler's model", flush=True)
+          f"backward {counts} (expected {want}); conv forward / backward "
+          f"{conv}; EMA loaded with strict=True into the sampler's model",
+          flush=True)
     if len(losses) != steps or not all(map(math.isfinite, losses)):
         fail(f"{what} training losses {losses}")
     if counts != want:
@@ -1992,8 +2192,8 @@ def train_cli_phase(what, args, batch, k1_step, k2_step, tmp, unit="images",
           f"earlier phases before the run", flush=True)
     return res["state"], res["checkpoint"], dict(
         steps_per_s=steps_s, samples_per_s=steps_s * batch, peak_gb=peak_gb,
-        held_gb=held_gb, k1=counts[0], k2=counts[1], evals=res["evals"],
-        suite=res["metric_suite"], losses=losses)
+        held_gb=held_gb, k1=counts[0], k2=counts[1], conv=conv,
+        evals=res["evals"], suite=res["metric_suite"], losses=losses)
 
 
 def perturbed_ckpt(gen, ckpt, path):
@@ -2042,6 +2242,7 @@ def text_sample_phase(gen, ckpt):
         if counts != (DEPTH * (STEPS - 1), 0, 0, 0):
             fail(f"text guided sampling: K1 / K2 / plain {counts}, expected "
                  f"{DEPTH * (STEPS - 1)} K1 a batch and nothing else")
+        conv = check_conv("text guided sampling", counts[:2])
         if not bool(torch.isfinite(out).all()):
             fail("text guided sampling: non-finite samples")
     img_s = BATCH / seconds[1]
@@ -2049,7 +2250,8 @@ def text_sample_phase(gen, ckpt):
           f"({2 * BATCH} under CFG), 77 x 768 caption features: "
           f"{img_s:.4f} images/s (second batch; first {seconds[0]:.3f} s); "
           f"K1 {counts[0]} launches a batch", flush=True)
-    return dict(images_per_s=img_s, k1=counts[0] * N_BATCHES)
+    return dict(images_per_s=img_s, k1=counts[0] * N_BATCHES,
+                conv=tuple(n * N_BATCHES for n in conv))
 
 
 def ssd_truth_phase(gen):
@@ -2160,14 +2362,19 @@ def ssm2_sample_phase(gen, ckpt, tmp):
         f"ckpt={path}", *SSM2_ARGS, "sample_mode=ODE",
         "ode.sampling_method=euler", f"ode.num_sampling_steps={STEPS}",
         f"offline_sample_local_bs={BATCH}",
-        f"num_fid_samples={N_BATCHES * BATCH}", f"sample_dir={tmp}"])
+        f"num_fid_samples={N_BATCHES * BATCH}", f"sample_dir={tmp}"],
+        conv_per_scan=False)
     img_s = BATCH / res["batch_seconds"][1]
     print(f"ssm2 50-step Euler, batch {BATCH}: {img_s:.4f} images/s (second "
           f"batch; first {res['batch_seconds'][0]:.3f} s); K1 {k1}, K2 {k2}",
           flush=True)
     if (k1, k2) != (0, 0) or calls != N_BATCHES * (STEPS - 1):
         fail(f"ssm2 sampling: K1 / K2 {(k1, k2)}, {calls} model calls")
-    return dict(images_per_s=img_s)
+    if res["conv"][0] % calls or not res["conv"][0] or res["conv"][1]:
+        fail(f"ssm2 sampling: conv forward / backward {res['conv']} for "
+             f"{calls} model calls, expected the same number a call and no "
+             f"backward")
+    return dict(images_per_s=img_s, conv=res["conv"])
 
 
 def s1024_sample_phase(gen, tmp):
@@ -2201,7 +2408,7 @@ def s1024_sample_phase(gen, tmp):
         if k1 != 2 * DEPTH * (STEPS - 1) or k2 != 0:
             fail(f"1024^2 {tag} sampling: K1 / K2 {(k1, k2)}, expected "
                  f"{2 * DEPTH * (STEPS - 1)} / 0")
-        out[tag] = dict(images_per_s=img_s, k1=k1)
+        out[tag] = dict(images_per_s=img_s, k1=k1, conv=res["conv"])
     return out
 
 
@@ -3091,6 +3298,7 @@ def serve_phase(gen, tmp):
             times.append((time.perf_counter() - t0) * 1e3)
             if code != 200 or read_counts() != (per_request, 0, 0, 0):
                 fail(f"serve timing request: HTTP {code}, {read_counts()}")
+            conv = check_conv("serve timing request", (per_request, 0))
         ms = statistics.median(times)
         # the parts of a request, on this thread while the worker is idle
         y = torch.full((SERVE_BATCH,), 1, device="cuda")
@@ -3112,7 +3320,7 @@ def serve_phase(gen, tmp):
         server.shutdown()
         server.server_close()
         worker.close()
-    return dict(k1=per_request, warmup_s=worker.compile_s, ms=ms,
+    return dict(k1=per_request, conv=conv, warmup_s=worker.compile_s, ms=ms,
                 images_per_s=SERVE_BATCH * 1e3 / ms, sample_ms=sample_ms,
                 decode_ms=decode_ms)
 
@@ -3254,6 +3462,8 @@ def lm_phase(gen):
     if counts != (LM_SHAPE["n_layer"], 0, 0, 0):
         fail(f"LM generate: K1 / K2 / plain {counts}, expected "
              f"{LM_SHAPE['n_layer']} K1 (the prefill) and nothing else")
+    conv = check_conv("LM generate (the decode steps' conv is plain)",
+                      counts[:2])
     if out.shape != (B_, P + G) or not torch.equal(out[:, :P], prompt) or \
             int(out.min()) < 0 or int(out.max()) >= model.padded_vocab:
         fail(f"LM generate: output {tuple(out.shape)} out of range")
@@ -3263,8 +3473,9 @@ def lm_phase(gen):
         tok = out[:, P:P + 1]
         reset_counts()
         step_ms = cuda_ms(lambda: model.step(tok, caches), reps=16)
-        if read_counts()[0]:
-            fail(f"LM decode steps launched K1 {read_counts()[0]} times")
+        if read_counts()[0] or conv_counts()[0]:
+            fail(f"LM decode steps launched K1 / the conv "
+                 f"{read_counts()[0]} / {conv_counts()[0]} times")
 
     def decode_step():
         with torch.inference_mode():
@@ -3282,7 +3493,7 @@ def lm_phase(gen):
     del model
     phase("benchmark_generation (the tool, default shape)")
     tool = benchmark_generation.main(["--repeats", "2"])
-    return dict(k1=counts[0], k1_lm=k1_lm, gen_ms=gen_ms,
+    return dict(k1=counts[0], conv=conv, k1_lm=k1_lm, gen_ms=gen_ms,
                 gen_tok_per_s=B_ * G / gen_ms * 1e3, prefill_ms=prefill_ms,
                 step_ms=step_ms, kernels_per_step=n_kernels,
                 idle_share=1 - busy / wall, tool_ms=tool["ms"])
@@ -4441,6 +4652,9 @@ def main():
     k2 = kernel_bwd_phase(gen)
     phase("kernels at the video shapes")
     kv = video_kernel_phase(gen)
+    phase("conv kernels (causal conv1d, forward and backward) at the "
+          "flagship and video shapes")
+    kc, kc_info = conv_kernel_phase(gen)
     phase("repairs: no delta_bias, cast A and D, 65537 sequences")
     repairs_phase(gen)
     phase("kernels at the 1024^2 sampling shapes")
@@ -4492,7 +4706,8 @@ def main():
         lik = likelihood_phase(e2e["ckpt"], tmp)
         phase("video train (3d_zigzag8sst_b2)")
         vstate, vckpt, vtr = train_cli_phase(
-            "video", VIDEO_ARGS, VIDEO_BATCH, 2 * DEPTH, DEPTH, tmp, "videos")
+            "video", VIDEO_ARGS, VIDEO_BATCH, 2 * DEPTH, DEPTH, tmp, "videos",
+            conv_per_scan=True)
         phase("video sample (3d_zigzag8sst_b2, cfg 4)")
         vckpt, vs = video_sample_phase(gen, vckpt, tmp)
         phase("video grad check")
@@ -4503,7 +4718,8 @@ def main():
                          class_dropout_prob=0.1)
         phase("text train (flagship with 77 x 768 caption features)")
         tstate, tckpt, ttr = train_cli_phase(
-            "text", TEXT_ARGS, BATCH, 2 * DEPTH, DEPTH, tmp)
+            "text", TEXT_ARGS, BATCH, 2 * DEPTH, DEPTH, tmp,
+            conv_per_scan=True)
         phase("text guided sample (cfg 4)")
         ts = text_sample_phase(gen, perturbed_ckpt(
             gen, tckpt, os.path.join(tmp, "text.pt")))
@@ -4518,8 +4734,12 @@ def main():
         phase("ssm2 sample")
         s2s = ssm2_sample_phase(gen, sckpt, tmp)
         print(f"ssm2 paths: K1 {s2tr['k1']} / K2 {s2tr['k2']} launches in "
-              f"training, 0 / 0 in sampling; the plain scans never",
-              flush=True)
+              f"training, 0 / 0 in sampling; the plain scans never; conv "
+              f"forward / backward {s2tr['conv']} in training, "
+              f"{s2s['conv']} in sampling", flush=True)
+        if not all(s2tr["conv"]) or s2tr["conv"][0] != 2 * s2tr["conv"][1]:
+            fail(f"ssm2 training: conv forward / backward {s2tr['conv']}, "
+                 f"expected a backward for every two forwards (remat)")
         phase("SSD truth gate and times")
         ssd = ssd_truth_phase(gen)
         phase("1024^2 sampling (s1024_zigzag8_b2, patch 2 and 1)")
@@ -4697,6 +4917,27 @@ def main():
              pipeline_microbatch_shape=kmb["K2"],
              modes={k.split(" ", 1)[1]: v for k, v in km.items()
                     if k.startswith("K2")})]
+    # the conv kernels: one forward a Mamba-1 mixer (remat recomputes it),
+    # one backward; no TPU kernel stands behind them (XLA fuses the taps)
+    conv_paths = {"train": tr["conv"], "sample": e2e["conv"],
+                  "sample_dopri5": dp["conv"], "sample_sde": sde["conv"],
+                  "likelihood": lik["conv"], "video_train": vtr["conv"],
+                  "video_sample": vs["conv"], "text_train": ttr["conv"],
+                  "text_sample": ts["conv"], "ssm2_train": s2tr["conv"],
+                  "ssm2_sample": s2s["conv"],
+                  "sample_1024_p2": s1024["p2"]["conv"],
+                  "sample_1024_p1": s1024["p1"]["conv"],
+                  "serve_request": sv["conv"], "lm_generate": lm["conv"]}
+    flag = "x".join(map(str, CONV_SHAPES[0]))
+    for i, which in enumerate(("fwd", "bwd")):
+        kernels.append(dict(
+            name=f"causal_conv1d_{which}", route="cuda",
+            source="zigma_tpu_torch/csrc/causal_conv1d.cu", replaces=None,
+            launches=tr["conv"][i],
+            launches_by_path={k: v[i] for k, v in conv_paths.items()},
+            max_abs_err=0.0 if which == "fwd" else None,
+            **kc[flag][which], instance=kc_info[which],
+            video_shapes={k: v[which] for k, v in kc.items() if k != flag}))
     print(f"\nflagship sampling {e2e['images_per_s']:.4f} images/s, forward "
           f"{e2e['forward_ms']:.3f} ms; training {tr['steps_per_s']:.4f} "
           f"steps/s, {tr['images_per_s']:.3f} images/s, peak "
@@ -4764,7 +5005,13 @@ def main():
           f"{100 * ctr['busy_replay']:.1f}% of a replay against "
           f"{100 * ctr['busy_eager']:.1f}% of an eager step, capture "
           f"{ctr['capture_s']:.3f} s, peak {ctr['peak_gb']:.2f} GB against "
-          f"{ctr['plain_peak_gb']:.2f} GB")
+          f"{ctr['plain_peak_gb']:.2f} GB; conv kernels at the flagship "
+          f"forward / backward {kc[flag]['fwd']['ms']:.4f} / "
+          f"{kc[flag]['bwd']['ms']:.4f} ms (plain "
+          f"{kc[flag]['fwd']['plain_ms']:.3f} / "
+          f"{kc[flag]['bwd']['plain_ms']:.3f}, library "
+          f"{kc[flag]['fwd']['library_ms']:.4f} / "
+          f"{kc[flag]['bwd']['library_ms']:.4f})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

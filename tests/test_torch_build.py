@@ -50,11 +50,12 @@ def test_forward_kernel_key_covers_its_header():
 
 def test_backward_kernel_key_covers_the_shared_header(tmp_path, monkeypatch):
     """K2 includes scan_common.cuh too: an edit to the header alone gives
-    both kernels a new library."""
+    both scan kernels a new library, and the conv kernels, which include
+    no header of ``csrc``, keep theirs."""
     assert _build._sources_of("selective_scan_bwd.cu") == [
         "selective_scan_bwd.cu", "scan_common.cuh"]
-    for name in ("selective_scan_fwd.cu", "selective_scan_bwd.cu",
-                 "scan_common.cuh"):
+    assert _build._sources_of("causal_conv1d.cu") == ["causal_conv1d.cu"]
+    for name in (*_build.SOURCES, "scan_common.cuh"):
         with open(os.path.join(_build.CSRC, name)) as f:
             (tmp_path / name).write_text(f.read())
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
@@ -62,4 +63,5 @@ def test_backward_kernel_key_covers_the_shared_header(tmp_path, monkeypatch):
     with open(tmp_path / "scan_common.cuh", "a") as f:
         f.write("// edit\n")
     for src in _build.SOURCES:
-        assert _build._lib_path(src) != keys[src], src
+        changed = _build._lib_path(src) != keys[src]
+        assert changed == (src != "causal_conv1d.cu"), src

@@ -1141,7 +1141,8 @@ def test_spans_of_a_step_on_the_card(gen):
     """A tiny remat step recorded on the card: the recompute runs on the
     autograd engine's device thread and nests under
     ``train_step.backward``; the root counts 2 K1 launches a block (the
-    forward and the recompute) and one K2, and the allocator's counts."""
+    forward and the recompute) and one K2, as many conv forward and
+    backward launches, and the allocator's counts."""
     from zigma_tpu_torch.train import train_step
     from zigma_tpu_torch.utils.profiling import ALLOCATOR_COUNTS, recording
     state, loss_fn = _tiny_trainer("remat", capturable=False)
@@ -1170,6 +1171,206 @@ def test_spans_of_a_step_on_the_card(gen):
                for s in recomputed)
     assert root.counters["k1_launches"] == 2 * depth
     assert root.counters["k2_launches"] == depth
+    assert root.counters["conv_launches"] == 2 * depth
+    assert root.counters["conv_bwd_launches"] == depth
     stats = torch.cuda.memory_stats()
     for k in ALLOCATOR_COUNTS:
         assert (root.counters[k] is None) == (k not in stats), k
+
+
+# ---------------------------------------------------------------------------
+# The causal conv1d kernels (csrc/causal_conv1d.cu): the forward bit-equal to
+# the plain version on the card, the backward against float64 autograd.
+
+def _conv_case(gen, batch, L, d, W, dtype, bias=True, init=False,
+               strided=False):
+    """x (batch, L, d) in ``dtype``, a slice of a (batch, L, 2d) ``xz`` when
+    ``strided``; fp32 taps and bias at the models' init scale; an optional
+    left context; a cotangent."""
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = (r(batch, L, 2 * d)[..., :d] if strided else r(batch, L, d)).to(dtype)
+    bound = W ** -0.5
+    w = (2 * torch.rand(d, W, generator=gen, device="cuda") - 1) * bound
+    b = ((2 * torch.rand(d, generator=gen, device="cuda") - 1) * bound
+         if bias else None)
+    return dict(x=x, w=w, b=b, init=r(batch, W - 1, d).to(dtype) if init
+                else None, dy=r(batch, L, d).to(dtype))
+
+
+CONV_SHAPES = [(2, 1), (2, 3), (2, 16), (2, 255), (2, 1024), (1, 4096),
+               (5120, 16)]
+
+
+@pytest.mark.parametrize("d", [1536, 1792, 1537])
+@pytest.mark.parametrize("batch,L", CONV_SHAPES)
+@pytest.mark.parametrize("W", [2, 3, 4])
+def test_conv_kernel_forward_bit_equal_across_shapes(gen, W, batch, L, d):
+    """bf16, strided x out of xz (read in place; the odd width ragged and
+    unaligned), bias and SiLU, as the Mamba mixer calls it: the kernel's
+    output equals the plain version's on the card bit for bit, and one
+    launch is counted."""
+    from zigma_tpu_torch.ops import conv_cuda
+    from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_ref)
+    t = _conv_case(gen, batch, L, d, W, torch.bfloat16, strided=True)
+    before = conv_cuda.causal_conv1d_fwd_cuda.launches
+    with torch.no_grad():
+        got = causal_conv1d(t["x"], t["w"], t["b"])
+    assert conv_cuda.causal_conv1d_fwd_cuda.launches == before + 1
+    assert torch.equal(got, causal_conv1d_ref(t["x"], t["w"], t["b"]))
+
+
+@pytest.mark.parametrize("accum", [None, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("act", ["silu", None])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("strided", [True, False])
+def test_conv_kernel_forward_bit_equal_across_modes(gen, strided, bias, act,
+                                                    init, dtype, accum):
+    """Every mode at (2, 256, 1536), W 4: strided or contiguous x, with or
+    without bias, SiLU or none, a left context or zeros, bf16 or fp32
+    inputs, accumulated in x's dtype or fp32 (``conv_fp32_taps``)."""
+    from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_ref)
+    t = _conv_case(gen, 2, 256, 1536, 4, dtype, bias, init, strided)
+    args = (t["x"], t["w"], t["b"], act, t["init"], accum)
+    with torch.no_grad():
+        assert torch.equal(causal_conv1d(*args), causal_conv1d_ref(*args))
+
+
+def _f64_grads(t, act, accum, plain):
+    """Autograd of the plain forward: on the float64 copies of the inputs
+    (``plain`` False, the truth) or on the inputs themselves."""
+    from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d_ref
+    leaves = {k: (v.double() if not plain else v).detach().clone()
+              .requires_grad_(True)
+              for k, v in t.items() if v is not None and k != "dy"}
+    y = causal_conv1d_ref(leaves["x"], leaves["w"], leaves.get("b"), act,
+                          leaves.get("init"), None if not plain else accum)
+    y.backward(t["dy"].to(y.dtype))
+    return [None if k not in leaves else leaves[k].grad
+            for k in ("x", "w", "b", "init")]
+
+
+def _norm_gap(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("accum", [None, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("act", ["silu", None])
+@pytest.mark.parametrize("batch,L,d,W", [(4, 256, 1536, 4), (320, 16, 1537, 3),
+                                         (3, 1, 64, 2)])
+def test_conv_backward_kernel_against_float64(gen, batch, L, d, W, act, init,
+                                              dtype, accum):
+    """The registered operator's backward (the kernel) against float64
+    autograd of the plain forward: each gradient (dx, dw, dbias, the left
+    context's) no farther from it (norm of the difference over the norm)
+    than the plain autograd chain in the working dtype, within 1% and 1e-6;
+    two backward launches give the same bits; one backward launch."""
+    from zigma_tpu_torch.ops import conv_cuda
+    from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
+    t = _conv_case(gen, batch, L, d, W, dtype, True, init)
+    truth = _f64_grads(t, act, accum, plain=False)
+    plain = _f64_grads(t, act, accum, plain=True)
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in t.items() if v is not None
+                  and k not in ("x", "dy")}
+        # x read in place out of a wider leaf, as in_proj's xz
+        xz = torch.cat([t["x"], t["x"]], -1).detach().requires_grad_(True)
+        before = conv_cuda.causal_conv1d_bwd_cuda.launches
+        y = causal_conv1d(xz[..., :d], leaves["w"], leaves.get("b"), act,
+                          leaves.get("init"), accum)
+        y.backward(t["dy"])
+        assert conv_cuda.causal_conv1d_bwd_cuda.launches == before + 1
+        runs.append([xz.grad[..., :d]] + [
+            None if k not in leaves else leaves[k].grad
+            for k in ("w", "b", "init")])
+    for name, k, p, tr, again in zip(("dx", "dw", "dbias", "dinit"), runs[0],
+                                     plain, truth, runs[1]):
+        if tr is None:
+            continue
+        assert k.dtype == p.dtype and k.shape == p.shape, name
+        assert torch.equal(k, again), name
+        assert _norm_gap(k, tr) <= 1.01 * _norm_gap(p, tr) + 1e-6, name
+
+
+def test_conv_kernel_refuses_what_it_does_not_take(gen):
+    """W outside 2 to 4, a channel stride other than 1, tokens not evenly
+    spaced, float16, a tensor on another device: each raises before a
+    launch."""
+    from zigma_tpu_torch.ops import conv_cuda
+    from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d
+    t = _conv_case(gen, 2, 32, 64, 4, torch.bfloat16)
+    before = conv_cuda.causal_conv1d_fwd_cuda.launches
+    for W in (1, 5):
+        with pytest.raises(NotImplementedError, match=f"width {W}"):
+            causal_conv1d(t["x"], torch.ones(64, W, device="cuda"), t["b"])
+    wide = torch.zeros(2, 32, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unit channel stride"):
+        causal_conv1d(wide[..., ::2], t["w"], t["b"])
+    longer = torch.zeros(2, 33, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="evenly spaced"):
+        causal_conv1d(longer[:, :32], t["w"], t["b"])
+    with pytest.raises(ValueError, match="float16"):
+        causal_conv1d(t["x"].half(), t["w"], t["b"])
+    with pytest.raises(ValueError, match="is on cpu"):
+        causal_conv1d(t["x"], t["w"].cpu(), t["b"])
+    assert conv_cuda.causal_conv1d_fwd_cuda.launches == before
+    info = {bwd: conv_cuda.causal_conv1d_launch_info(bwd, torch.bfloat16)
+            for bwd in (False, True)}
+    print("conv kernel instances (forward, backward):", info)
+    assert all(i["spill_bytes"] == 0 and i["blocks_per_sm"] >= 1
+               for i in info.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_update_matches_the_kernel_at_every_position(gen, dtype):
+    """``causal_conv1d_update`` (plain, the decode step) from a zero window
+    gives the kernel's output at every position, bit for bit."""
+    from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
+                                                   causal_conv1d_update)
+    t = _conv_case(gen, 3, 24, 96, 4, dtype)
+    with torch.no_grad():
+        y = causal_conv1d(t["x"], t["w"], t["b"])
+        state = torch.zeros(3, 4, 96, dtype=dtype, device="cuda")
+        for i in range(24):
+            yi, state = causal_conv1d_update(t["x"][:, i], state, t["w"],
+                                             t["b"])
+            assert torch.equal(yi, y[:, i]), i
+
+
+def test_tiny_model_gradients_conv_kernel_against_plain(gen, monkeypatch):
+    """A tiny fp32 ZigMa (remat): loss and gradients with the conv kernels
+    against the same model with the plain conv (its autograd chain), one
+    conv and one conv backward launch a block and pass."""
+    from zigma_tpu_torch.models import mamba
+    from zigma_tpu_torch.ops import conv_cuda
+    from zigma_tpu_torch.ops.causal_conv1d import causal_conv1d_ref
+    model = ZigMa(in_channels=4, embed_dim=64, depth=2, img_dim=8,
+                  scan_type="zigzagN8", use_pe=2, use_checkpoint=True,
+                  device="cuda", generator=gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen, device="cuda"))
+    x = torch.randn(2, 4, 8, 8, generator=gen, device="cuda")
+    t = torch.rand(2, generator=gen, device="cuda")
+    before = (conv_cuda.causal_conv1d_fwd_cuda.launches,
+              conv_cuda.causal_conv1d_bwd_cuda.launches)
+    got = model(x, t)
+    (got ** 2).sum().backward()
+    assert (conv_cuda.causal_conv1d_fwd_cuda.launches - before[0],
+            conv_cuda.causal_conv1d_bwd_cuda.launches - before[1]) == (4, 2)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad()
+    monkeypatch.setattr(mamba, "causal_conv1d", causal_conv1d_ref)
+    want = model(x, t)
+    (want ** 2).sum().backward()
+    assert _rel(got, want) <= TOL_FP32
+    for n, p in model.named_parameters():
+        assert _rel(grads[n], p.grad) <= TOL_FP32, n

@@ -110,9 +110,12 @@ def test_root_counters():
     assert [r.name for r in roots] == ["train_step", "model.forward"]
     step, alone = roots
     assert set(step.counters) == {"k1_launches", "k2_launches",
+                                  "conv_launches", "conv_bwd_launches",
                                   "gc_collections",
                                   *profiling.ALLOCATOR_COUNTS}
     assert step.counters["k1_launches"] == step.counters["k2_launches"] == 0
+    assert (step.counters["conv_launches"]
+            == step.counters["conv_bwd_launches"] == 0)
     assert all(step.counters[k] is None for k in profiling.ALLOCATOR_COUNTS)
     assert alone.counters["gc_collections"] >= 1
     assert all(s.counters is None for s in spans if s.parent is not None)

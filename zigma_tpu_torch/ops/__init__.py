@@ -9,6 +9,8 @@ from zigma_tpu_torch.ops.paths import (
 )
 from zigma_tpu_torch.ops.norms import add_norm, layer_norm, rms_norm
 from zigma_tpu_torch.ops.causal_conv1d import (causal_conv1d,
+                                               causal_conv1d_bwd_ref,
+                                               causal_conv1d_ref,
                                                causal_conv1d_update)
 from zigma_tpu_torch.ops.selective_scan import (scan_backend, scan_with_grad,
                                                 selective_scan,
@@ -36,6 +38,8 @@ __all__ = [
     "rms_norm",
     "causal_conv1d",
     "causal_conv1d_update",
+    "causal_conv1d_ref",
+    "causal_conv1d_bwd_ref",
     "scan_backend",
     "scan_with_grad",
     "selective_scan",

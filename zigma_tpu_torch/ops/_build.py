@@ -26,7 +26,8 @@ __all__ = ["SOURCES", "build_all", "load", "nvcc_path"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu")
+SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu",
+           "causal_conv1d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)

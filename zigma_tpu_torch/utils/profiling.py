@@ -23,6 +23,8 @@ thread of its own, and a remat recompute there nests under
 
 A root span also carries ``counters``, the change between its start and its
 end of: the K1 / K2 launches (``selective_scan_{fwd,bwd}_cuda.launches``),
+the conv kernels' (``conv_launches``, ``conv_bwd_launches``:
+``causal_conv1d_{fwd,bwd}_cuda.launches``),
 the caching allocator's ``num_device_alloc``, ``num_device_free`` and
 ``num_alloc_retries`` (None without a card, or where the card's torch has
 no such count) and Python's garbage collections.  While recording, each
@@ -132,8 +134,10 @@ class Span:
 
 
 def _counts(kernels) -> dict:
-    fwd, bwd = kernels
+    fwd, bwd, conv, conv_bwd = kernels
     out = {"k1_launches": fwd.launches, "k2_launches": bwd.launches,
+           "conv_launches": conv.launches,
+           "conv_bwd_launches": conv_bwd.launches,
            "gc_collections": sum(g["collections"] for g in gc.get_stats())}
     stats = {}
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -147,9 +151,11 @@ class _Recorder:
     the open unit.  Re-entrant: a collection may start inside ``open``."""
 
     def __init__(self):
-        from zigma_tpu_torch.ops import scan_cuda
+        from zigma_tpu_torch.ops import conv_cuda, scan_cuda
         self.kernels = (scan_cuda.selective_scan_fwd_cuda,
-                        scan_cuda.selective_scan_bwd_cuda)
+                        scan_cuda.selective_scan_bwd_cuda,
+                        conv_cuda.causal_conv1d_fwd_cuda,
+                        conv_cuda.causal_conv1d_bwd_cuda)
         self.spans, self.stacks, self.unit, self.gc_spans = [], {}, None, {}
         self.lock = threading.RLock()
         self.ids = itertools.count(1)
