@@ -8,11 +8,13 @@ reads x and writes y, a backward reads x and dy and writes dx, each of
 FMAs and one exp a token and channel) take less than a tenth of that.  The
 share is that least time summed over the traced launches, over the traced
 device time of every operation whose name holds ``causal_conv1d`` (the
-backward's fixed-order sum of its dw / dbias partials included).  A
+backward's fixed-order sum of its dw / dbias partials included).  The
+tokens and d_inner are the first scan's of the cell's family
+(``scan_shapes``): every conv of a forward has that many.  A
 program without these kernels (before they were written) reads nothing.
 """
 
-from portbench.work import PEAK, scan_shapes
+from portbench.work import PEAK
 
 __all__ = ["read"]
 
@@ -26,7 +28,7 @@ def read(run):
     spent = sum(ns for _, ns in ops) * 1e-9
     if spent <= 0:
         return None
-    batch, L, d, _ = scan_shapes(run.cfg, run.job.batch)[0]
+    batch, L, d, _ = run.family.scan_shapes(run.cfg, run.job.batch)[0]
     item = 2 if run.cfg["mixed_precision"] == "bf16" else 4
     one = batch * L * d * item  # bytes of one (tokens, d_inner) tensor
     fwd = sum(1 for name, _ in ops if NAME + "_fwd" in name)

@@ -1,6 +1,7 @@
 """Faults planted under the program's timed path, to show that the check
 catches them: each a context manager that patches one entry point of the
-program while it is active.
+program while it is active.  A job class lists those its kind of work can
+have (``faults``, ``jobs/``):
 
 - ``unchanged_state``: a training step that returns the parameters as it
   found them;
@@ -13,15 +14,15 @@ program while it is active.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
 from unittest import mock
 
 import torch
 
-__all__ = ["FAULTS", "plant"]
+__all__ = ["unchanged_state", "ema_unchanged", "half_batch",
+           "altered_answer"]
 
 
-def _unchanged_state():
+def unchanged_state():
     from zigma_tpu_torch.train import state as S
     real = S.train_step
 
@@ -36,12 +37,12 @@ def _unchanged_state():
     return mock.patch.object(S, "train_step", step)
 
 
-def _ema_unchanged():
+def ema_unchanged():
     from zigma_tpu_torch.train import state as S
     return mock.patch.object(S, "update_ema", lambda *a, **k: None)
 
 
-def _half_batch():
+def half_batch():
     import zigma_tpu_torch.train as T
     real = T.make_diffusion_loss_fn
 
@@ -59,7 +60,7 @@ def _half_batch():
     return mock.patch.object(T, "make_diffusion_loss_fn", make)
 
 
-def _altered_answer():
+def altered_answer():
     from zigma_tpu_torch.transport import transport as TR
     real = TR.odeint_fixed
 
@@ -69,15 +70,3 @@ def _altered_answer():
         return traj
 
     return mock.patch.object(TR, "odeint_fixed", odeint)
-
-
-FAULTS = {"train": {"unchanged_state": _unchanged_state,
-                    "ema_unchanged": _ema_unchanged,
-                    "half_batch": _half_batch},
-          "sample": {"altered_answer": _altered_answer}}
-
-
-@contextmanager
-def plant(kind: str, name: str):
-    with FAULTS[kind][name]():
-        yield

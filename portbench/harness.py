@@ -1,11 +1,13 @@
 """One run of one cell: set-up, the measured window, the traced window
 (``--trace 1``), the check against the plain reference, the result line.
 
-Everything that belongs to a cell is found by name: the cell in
-``BENCHMARK.json``, its configuration in ``configs/<config>.json``, its mix
-in ``traffic/<traffic>.json`` (whose ``kind`` names the kind of work in
-``workloads.KINDS``), its limits in ``limits/<cell>.json`` and each
-per-layer metric's reader in ``metrics/<metric>.py``.
+Everything that belongs to a cell is found by name under the root it is
+given: the cell in ``BENCHMARK.json``, its configuration in the file the
+manifest names (whose ``family`` names the model family in
+``families/<family>.py``, ``zigma`` where it names none), its mix in
+``traffic/<traffic>.json`` (whose ``kind`` names the kind of work in
+``jobs/<kind>.py``), its limits in ``limits/<cell>.json`` and each
+per-layer metric's reader in ``metrics/<metric>.py`` (``lookup.py``).
 
 The window holds whole units (sampler batches or training steps) only: it starts
 at the first one's start and ends at the last one's end, and runs until
@@ -19,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import gc
-import importlib.util
 import json
 import os
 import subprocess
@@ -29,12 +30,11 @@ from types import SimpleNamespace
 
 import torch
 
-from portbench import workloads
+from portbench import lookup
+from portbench.lookup import ROOT
 
 __all__ = ["main", "run_cell", "load_cell", "FORBIDDEN"]
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "zigma_tpu")
 HOST_THREADS = 2
 SMI_QUERY = "clocks.sm,clocks.mem,temperature.gpu,power.draw,power.limit"
@@ -55,8 +55,8 @@ def load_cell(name: str, root: str = ROOT):
     cell = cells[name]
     config = next(c for c in manifest["configs"] if c["name"] == cell["config"])
     cfg = _json(os.path.join(root, config["file"]))
-    traffic = _json(os.path.join(HERE, "traffic", cell["traffic"] + ".json"))
-    limits = _json(os.path.join(HERE, "limits", name + ".json"))
+    traffic = _json(lookup.path(root, "traffic", cell["traffic"]))
+    limits = _json(lookup.path(root, "limits", name))
     return manifest, cell, cfg, traffic, limits
 
 
@@ -82,15 +82,6 @@ def card_state() -> str:
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-
-
-def _metric_reader(name: str):
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
 
 
 def _window(job, seconds, device, sync_every=1):
@@ -165,7 +156,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    job = workloads.KINDS[traffic["kind"]](cfg, traffic, seed, device)
+    job = lookup.make_job(cfg, traffic, seed, device, root)
     job.setup()
     gc.collect()
     gc.freeze()
@@ -178,8 +169,8 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
     samples = job.samples(units)
     e2e = {traffic["rate_metric"]: samples / window_s,
            "peak_mem_gib": peak / 2 ** 30, "setup_s": setup_s}
-    run = SimpleNamespace(cfg=cfg, traffic=traffic, job=job,
-                          units=units, window_s=window_s, trace=None)
+    run = SimpleNamespace(cfg=cfg, traffic=traffic, family=job.family,
+                          job=job, units=units, window_s=window_s, trace=None)
     if cuda:
         run.n_sms = torch.cuda.get_device_properties(0).multi_processor_count
         run.sm_clock_mhz = _max_sm_clock()
@@ -190,7 +181,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_start=None,
         metrics = {}
         for m in manifest["per_layer"]:
             if _wants(m, name, {e["name"] for e in ends}):
-                value = _metric_reader(m["name"])(run)
+                value = lookup.metric(m["name"], root)(run)
                 if value is not None:
                     metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:

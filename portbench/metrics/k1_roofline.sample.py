@@ -1,9 +1,9 @@
 """k1_roofline.sample: the least time of a forward's scans (each layer's,
-at the shapes the model gives them, work.k1_work) times the traced
+at the shapes the cell's family gives them, work.k1_work) times the traced
 forwards, over the device time of the operations of the kind "K1 selective
 scan fwd" (``kinds.json``)."""
 
-from portbench.work import k1_work, least_seconds, scan_shapes
+from portbench.work import k1_work, least_seconds
 
 KIND = "K1 selective scan fwd"
 
@@ -15,5 +15,5 @@ def read(run):
         return None
     item = 2 if run.cfg["mixed_precision"] == "bf16" else 4
     least = sum(least_seconds(k1_work(*s, item), run.n_sms, run.sm_clock_mhz)
-                for s in scan_shapes(run.cfg, d.batch))
+                for s in run.family.scan_shapes(run.cfg, d.batch))
     return 100.0 * least * tr.units * d.forwards_per_unit / spent

@@ -1,9 +1,9 @@
 """k2_roofline.train: the least time of a training step's backward scans
-(each layer's, at the shapes the model gives them, work.k2_work) times the
-traced steps, over the device time of the operations of the kind "K2
-selective scan bwd" (``kinds.json``)."""
+(each layer's, at the shapes the cell's family gives them, work.k2_work)
+times the traced steps, over the device time of the operations of the kind
+"K2 selective scan bwd" (``kinds.json``)."""
 
-from portbench.work import k2_work, least_seconds, scan_shapes
+from portbench.work import k2_work, least_seconds
 
 KIND = "K2 selective scan bwd"
 
@@ -15,5 +15,5 @@ def read(run):
         return None
     item = 2 if run.cfg["mixed_precision"] == "bf16" else 4
     least = sum(least_seconds(k2_work(*s, item), run.n_sms, run.sm_clock_mhz)
-                for s in scan_shapes(run.cfg, d.batch))
+                for s in run.family.scan_shapes(run.cfg, d.batch))
     return 100.0 * least * tr.units * d.steps_per_unit / spent

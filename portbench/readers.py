@@ -1,7 +1,7 @@
 """Readers that several per-layer metrics share; each metric's file in
 ``metrics/`` binds its ``read`` to one of them."""
 
-from portbench.work import PEAK, forward_flops
+from portbench.work import PEAK
 
 __all__ = ["idle", "train_mfu"]
 
@@ -22,7 +22,9 @@ def idle(run):
 def train_mfu(run):
     """The model FLOPs of the window's training steps (3 forwards' worth a
     step, forward and backward; remat's recompute is not counted) over the
-    window's host-clock time, as a share of the H100's dense bf16 peak."""
+    window's host-clock time, as a share of the H100's dense bf16 peak;
+    the forward's FLOPs are the cell's family's (``forward_flops``)."""
     d = run.job
-    flops = 3 * forward_flops(run.cfg, d.batch) * d.steps_per_unit * run.units
+    flops = (3 * run.family.forward_flops(run.cfg, d.batch)
+             * d.steps_per_unit * run.units)
     return 100.0 * flops / run.window_s / PEAK["bf16_flops"]

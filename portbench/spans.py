@@ -21,9 +21,9 @@ span, the counters a unit, pass (b)'s idle a unit beside the harness's
 traced window's, its collections, and its idle by the innermost span
 around each gap.
 
-A unit's root span is ``train_step`` (training) or ``sampler.sample``
-(sampling); idle outside the roots is the harness's (its loop and its
-synchronisation).
+A unit's root span is the one its job class names (``root_span``:
+``train_step`` for training, ``sampler.sample`` for sampling); idle
+outside the roots is the harness's (its loop and its synchronisation).
 """
 
 from __future__ import annotations
@@ -37,9 +37,7 @@ import torch
 
 from portbench.trace import Trace
 
-__all__ = ["read", "host_ms", "program_idle_ms", "ROOTS"]
-
-ROOTS = {"train": "train_step", "sample": "sampler.sample"}
+__all__ = ["read", "host_ms", "program_idle_ms"]
 
 
 def _sync(cuda):
@@ -121,7 +119,7 @@ def _passes(run):
             wall = time.perf_counter() - t0
     finally:
         gc.callbacks[:] = callbacks
-    out = SimpleNamespace(root=ROOTS[run.traffic["kind"]], units=units,
+    out = SimpleNamespace(root=job.root_span, units=units,
                           host=host, traced=traced,
                           trace=Trace(prof, wall, units), window=run.trace)
     _report(out)

@@ -13,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from portbench import conv_roofline  # noqa: E402
+from portbench import conv_roofline, lookup  # noqa: E402
 from portbench.trace import Trace  # noqa: E402
 from portbench.work import PEAK  # noqa: E402
 
@@ -23,8 +23,8 @@ def _run(config, batch, ops):
         cfg = json.load(f)
     trace = Trace.__new__(Trace)
     trace.ops = ops
-    return SimpleNamespace(cfg=cfg, job=SimpleNamespace(batch=batch),
-                           trace=trace)
+    return SimpleNamespace(cfg=cfg, family=lookup.family(cfg),
+                           job=SimpleNamespace(batch=batch), trace=trace)
 
 
 @pytest.mark.parametrize("config,batch,tokens", [

@@ -13,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from portbench import faults, harness, reference, workloads  # noqa: E402
+from portbench import harness, lookup, reference  # noqa: E402
 from zigma_tpu_torch.ops.paths import build_layer_paths  # noqa: E402
 
 TINY = {"depth": 3, "embed_dim": 32, "img_dim": 8}
@@ -54,20 +54,23 @@ def test_control_reads_far_above_the_program(cell):
     _, _, c, t, _ = harness.load_cell(cell)
     c.update({**TINY, **cfg})
     t.update(traffic)
-    d = workloads.KINDS[t["kind"]](c, t, SEED, "cpu")
+    d = lookup.make_job(c, t, SEED, "cpu")
     d.release()
     ctrl = d.control()
     assert any(ctrl[k] >= 3 * prog[k] for k in prog), (ctrl, prog)
 
 
+def _job(cell):
+    return lookup.job(harness.load_cell(cell)[3]["kind"])
+
+
 FAULT_CASES = [(cell, name) for cell in sorted(CELLS)
-               for name in faults.FAULTS[harness.load_cell(cell)[3]["kind"]]]
+               for name in _job(cell).faults]
 
 
 @pytest.mark.parametrize("cell,name", FAULT_CASES)
 def test_a_planted_fault_is_not_correct(cell, name):
-    kind = harness.load_cell(cell)[3]["kind"]
-    with faults.plant(kind, name):
+    with _job(cell).faults[name]():
         r = _run(cell)
     assert not r["correct"], r["checks"]
 
@@ -100,8 +103,7 @@ def test_control_fails_the_limits_at_the_cells_size(cell):
                     "own size")
     _, _, cfg, traffic, limits = harness.load_cell(cell)
     for seed in (11, 2 ** 31 + 5, 7_000_000_003):
-        d = workloads.KINDS[traffic["kind"]](dict(cfg), traffic, seed,
-                                               "cuda")
+        d = lookup.make_job(dict(cfg), traffic, seed, "cuda")
         d.release()
         ctrl = d.control()
         assert any(v > limits[k] for k, v in ctrl.items()), (seed, ctrl)

@@ -15,7 +15,7 @@ BENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH)
 sys.path.insert(0, ROOT)
 
-from portbench import harness, work  # noqa: E402
+from portbench import harness, lookup, work  # noqa: E402
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -54,7 +54,8 @@ def test_every_cell_finds_its_files(manifest):
         _, cell, cfg, traffic, limits = harness.load_cell(w["name"])
         assert w["chips"] == 1
         assert traffic["rate_metric"] in e2e
-        assert traffic["kind"] in ("train", "sample")
+        assert os.path.isfile(lookup.path(ROOT, "jobs", traffic["kind"],
+                                          ".py"))
         assert limits and all(v > 0 for v in limits.values())
     for m in manifest["per_layer"]:
         assert os.path.exists(os.path.join(BENCH, "metrics", m["name"] + ".py"))
@@ -64,6 +65,34 @@ def test_every_cell_finds_its_files(manifest):
     for c in manifest["configs"]:
         assert os.path.exists(os.path.join(ROOT, c["file"]))
         assert c["file"].startswith("portbench/")
+
+
+FAMILY = ("build", "input_shape", "conditions", "forward_terms",
+          "forward_flops", "scan_shapes")
+
+
+def test_every_configuration_resolves_to_a_family(manifest):
+    for c in manifest["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            cfg = json.load(f)
+        name = cfg.get("family", lookup.DEFAULT_FAMILY)
+        assert os.path.isfile(lookup.path(ROOT, "families", name, ".py"))
+        family = lookup.family(cfg)
+        assert all(callable(getattr(family, k)) for k in FAMILY)
+        assert callable(family.reference.forward)
+
+
+def test_every_traffic_kind_resolves_to_a_job_with_its_root_span():
+    folder = os.path.join(BENCH, "traffic")
+    kinds = set()
+    for name in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, name)) as f:
+            kinds.add(json.load(f)["kind"])
+    assert kinds
+    for kind in sorted(kinds):
+        job = lookup.job(kind)
+        assert isinstance(job.root_span, str) and job.root_span, kind
+        assert job.faults and all(callable(f) for f in job.faults.values())
 
 
 def _imports(path):
@@ -93,7 +122,8 @@ def test_harness_loads_no_jax():
     """Whole top-level names: the port's own name begins with the JAX
     package's, so a prefix would wrongly match it."""
     code = ("import sys; sys.path.insert(0, %r); from portbench import "
-            "harness, workloads, faults, trace; "
+            "harness, lookup, faults, trace; "
+            "lookup.family({}); lookup.job('train'); lookup.job('sample'); "
             "import zigma_tpu_torch.train, zigma_tpu_torch.transport, "
             "zigma_tpu_torch.models.zigma, zigma_tpu_torch.utils.inference; "
             "print(harness.forbidden_modules(), "
@@ -116,11 +146,12 @@ def test_run_without_a_card_fails_and_prints_no_result():
 
 def test_flops_match_the_programs_count_on_shared_terms():
     from zigma_tpu_torch.models.zigma import zigma_flops
+    zigma = lookup.family({})
     for cfg, batch in (({"embed_dim": 768, "depth": 24, "img_dim": 32,
                          "patch_size": 1, "in_channels": 4}, 16),
                        ({"embed_dim": 32, "depth": 2, "img_dim": 8,
                          "patch_size": 2, "in_channels": 4}, 3)):
-        terms = work.forward_terms(cfg, batch)
+        terms = zigma.forward_terms(cfg, batch)
         shared = sum(terms[k] for k in ("in_proj", "x_proj", "dt_proj",
                                         "scan", "out_proj"))
         seq = (cfg["img_dim"] // cfg["patch_size"]) ** 2
@@ -128,7 +159,7 @@ def test_flops_match_the_programs_count_on_shared_terms():
                                      cfg["depth"])
     flagship = {"embed_dim": 768, "depth": 24, "img_dim": 32,
                 "patch_size": 1, "in_channels": 4}
-    assert abs(work.forward_flops(flagship, 16) / 3.0311e12 - 1) < 1e-4
+    assert abs(zigma.forward_flops(flagship, 16) / 3.0311e12 - 1) < 1e-4
 
 
 def test_kernel_least_times_at_the_flagship_shape():
@@ -141,6 +172,6 @@ def test_kernel_least_times_at_the_flagship_shape():
 def test_video_scan_shapes():
     cfg = {"embed_dim": 768, "depth": 24, "img_dim": 32, "patch_size": 2,
            "video_frames": 16, "scan_type": "zzvideo_sst"}
-    shapes = work.scan_shapes(cfg, 20)
+    shapes = lookup.family(cfg).scan_shapes(cfg, 20)
     assert shapes.count((320, 256, 1536, 16)) == 16
     assert shapes.count((5120, 16, 1536, 16)) == 8

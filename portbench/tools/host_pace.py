@@ -22,7 +22,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 import torch  # noqa: E402
 
-from portbench import harness, workloads  # noqa: E402
+from portbench import harness, lookup  # noqa: E402
 
 
 def _probe() -> float:
@@ -49,7 +49,7 @@ def main(argv=None):
     _, _, cfg, traffic, _ = harness.load_cell(args.workload)
     default_threads = torch.get_num_threads()
     torch.set_num_threads(harness.HOST_THREADS)
-    job = workloads.KINDS[traffic["kind"]](cfg, traffic, args.seed, "cuda")
+    job = lookup.make_job(cfg, traffic, args.seed, "cuda")
     job.setup()
     real, host = job.unit, []
 

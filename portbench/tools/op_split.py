@@ -23,7 +23,7 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from portbench import harness, trace, workloads  # noqa: E402
+from portbench import harness, lookup, trace  # noqa: E402
 
 NODE = "autograd::engine::evaluate_function: "
 
@@ -79,8 +79,7 @@ def main(argv=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
     _, _, cfg, traffic, _ = harness.load_cell(args.workload)
-    job = workloads.KINDS[traffic["kind"]](dict(cfg), traffic, args.seed,
-                                           "cuda")
+    job = lookup.make_job(dict(cfg), traffic, args.seed, "cuda")
     job.setup()
     job.unit()
     torch.cuda.synchronize()

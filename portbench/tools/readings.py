@@ -2,8 +2,8 @@
 the card: the program on each of ``--seeds`` (a run of the cell with a
 short window, as the benchmark runs it), the control (the reference in
 float8 e4m3 in the program's place) on each of ``--control-seeds``, and
-each fault of ``faults.py`` (or those ``--faults`` names) planted under
-the timed path on each of ``--fault-seeds``.
+each fault the cell's job class lists (``faults``; or those ``--faults``
+names) planted under the timed path on each of ``--fault-seeds``.
 
     python3 portbench/tools/readings.py --workload <cell> --seeds 1,2,3 \
         --control-seeds 4,5,6 --fault-seeds 7,8,9 [--faults a,b] [--seconds 2]
@@ -21,7 +21,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
-from portbench import faults, harness, workloads  # noqa: E402
+from portbench import harness, lookup  # noqa: E402
 
 
 def _seeds(text):
@@ -54,13 +54,13 @@ def main(argv=None):
         show("program", seed, {k: c["value"] for k, c in r["checks"].items()},
              correct=r["correct"], metrics=r["metrics"])
     for seed in _seeds(args.control_seeds):
-        d = workloads.KINDS[traffic["kind"]](dict(cfg), traffic, seed, "cuda")
+        d = lookup.make_job(dict(cfg), traffic, seed, "cuda")
         d.release()
         show("control", seed, d.control())
-    for name in (args.faults.split(",") if args.faults
-                 else faults.FAULTS[traffic["kind"]]):
+    planted = lookup.job(traffic["kind"]).faults
+    for name in (args.faults.split(",") if args.faults else planted):
         for seed in _seeds(args.fault_seeds):
-            with faults.plant(traffic["kind"], name):
+            with planted[name]():
                 r = harness.run_cell(args.workload, seed, args.seconds, 0,
                                      "cuda")
             show("fault:" + name, seed,

@@ -1,6 +1,7 @@
-"""The yardstick's arithmetic: the H100's peaks, the operations and bytes of
-the two scan kernels, the least time the card could take for them, and the
-FLOPs of a ZigMa forward counted from its shapes.
+"""The yardstick's arithmetic that depends on the hardware and the kernels
+alone: the H100's peaks, the operations and bytes of the two scan kernels
+and the least time the card could take for them.  What a model's forward
+runs (its FLOPs, its scans' shapes) is its family's (``families/``).
 
 The peaks are NVIDIA's data sheet for the H100 SXM (dense, without
 sparsity, at the 700 W limit).  The kernels' work is each input byte read
@@ -13,10 +14,8 @@ step), whatever kernel does the work.
 
 from __future__ import annotations
 
-import math
-
 __all__ = ["PEAK", "SFU_OPS_PER_CLK_PER_SM", "k1_work", "k2_work",
-           "least_seconds", "forward_terms", "forward_flops", "scan_shapes"]
+           "least_seconds"]
 
 PEAK = {"bf16_flops": 989e12, "fp32_flops": 67e12, "hbm_bytes_per_sec": 3.35e12}
 # special-function unit results per clock per SM, compute capability 9.0
@@ -56,45 +55,3 @@ def least_seconds(work, n_sms: int, sm_clock_mhz: float) -> float:
     return max(n_bytes / PEAK["hbm_bytes_per_sec"],
                flops / PEAK["fp32_flops"],
                transc / (SFU_OPS_PER_CLK_PER_SM * n_sms * sm_clock_mhz * 1e6))
-
-
-def scan_shapes(cfg: dict, batch: int) -> list:
-    """(batch, L, d_inner, d_state) of every layer's scan in one forward:
-    a video layer folds the frames ('s' each frame's tokens, 't' each
-    token's frames)."""
-    side = cfg["img_dim"] // cfg["patch_size"]
-    frames = cfg.get("video_frames", 0)
-    d, n = cfg.get("expand", 2) * cfg["embed_dim"], cfg.get("d_state", 16)
-    if not frames:
-        return [(batch, side * side, d, n)] * cfg["depth"]
-    pattern = cfg["scan_type"].split("_", 1)[1]
-    return [(batch * frames, side * side, d, n) if ch == "s"
-            else (batch * side * side, frames, d, n)
-            for ch in (pattern * cfg["depth"])[:cfg["depth"]]]
-
-
-def forward_terms(cfg: dict, batch: int) -> dict:
-    """Multiply-add FLOPs (2 a multiply-add) of one forward by term: the
-    patch embedding, the timestep MLP, each block's adaLN, in_proj, causal
-    conv taps, x_proj, dt_proj, scan (9 a state and step) and out_proj, and
-    the final layer.  Elementwise work is not counted."""
-    E, depth, ps = cfg["embed_dim"], cfg["depth"], cfg["patch_size"]
-    C, frames = cfg["in_channels"], max(cfg.get("video_frames", 0), 1)
-    d, n = cfg.get("expand", 2) * E, cfg.get("d_state", 16)
-    R, W = math.ceil(E / 16), cfg.get("d_conv", 4)
-    tokens = batch * frames * (cfg["img_dim"] // ps) ** 2
-    return {"patch_embed": 2 * tokens * C * ps * ps * E,
-            "timestep_mlp": 2 * batch * (256 * E + E * E),
-            "adaLN": depth * 2 * batch * E * 3 * E,
-            "in_proj": depth * 2 * tokens * E * 2 * d,
-            "conv": depth * 2 * tokens * d * W,
-            "x_proj": depth * 2 * tokens * d * (R + 2 * n),
-            "dt_proj": depth * 2 * tokens * R * d,
-            "scan": depth * 9 * tokens * d * n,
-            "out_proj": depth * 2 * tokens * d * E,
-            "final_layer": 2 * tokens * E * ps * ps * C}
-
-
-def forward_flops(cfg: dict, batch: int) -> int:
-    """The FLOPs of one forward, all of ``forward_terms``."""
-    return sum(forward_terms(cfg, batch).values())
